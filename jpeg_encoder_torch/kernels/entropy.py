@@ -1,0 +1,122 @@
+"""Entropy kernel wrapper (K4): csrc/entropy.cu, with its plain version.
+
+Replaces jpeg_encoder_tpu/kernels/entropy_pallas.py::encode_entropy_fused.
+On CUDA tensors the wrapper launches the hand-written three-pass kernel
+(count, scan, write) or raises; on CPU tensors it runs the plain
+symbolizer and packer of ops/entropy.py, which is the kernel's spec. The
+Huffman tables are operands, so per-image optimized tables need no new
+kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from jpeg_encoder_tpu.config import FrameGeometry
+from jpeg_encoder_torch.kernels import _build
+from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+SOURCE = "jpeg_encoder_torch/csrc/entropy.cu"
+REPLACES = "jpeg_encoder_tpu/kernels/entropy_pallas.py:570"
+_SCAN_TILE = 4096  # entries per scan tile (kScanTile in entropy.cu)
+
+# Kernel launches since the last reset (the CPU path does not count).
+launches = 0
+
+
+@functools.cache
+def _kernel():
+    fn = _build.load().jt_entropy_encode
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, i, i, p, p, p, p, p, p, p, i, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_operands(z, geom, capacity_bytes, init_dc, luts) -> None:
+    if entropy_ops.worst_case_capacity_bytes(geom) * 8 >= 2**31:
+        raise ValueError(
+            f"{geom.width}x{geom.height}: the worst-case bit count does not "
+            "fit the kernel's int32 offsets"
+        )
+    if capacity_bytes <= 0 or capacity_bytes % 4:
+        raise ValueError(
+            "capacity_bytes must be a positive multiple of 4, got "
+            f"{capacity_bytes}"
+        )
+    if z.dtype != torch.int16 or z.dim() != 2 or z.shape[1] != 64:
+        raise ValueError(
+            f"z must be (E, 64) int16, got {z.dtype} {tuple(z.shape)}"
+        )
+    if z.shape[0] != geom.num_scan_entries:
+        raise ValueError(
+            f"z has {z.shape[0]} entries, the geometry {geom.num_scan_entries}"
+        )
+    if not z.is_contiguous() or z.data_ptr() % 4:
+        raise ValueError("z must be contiguous and 4-byte aligned")
+    if init_dc is not None and (
+        init_dc.shape != (3,) or init_dc.device != z.device
+    ):
+        raise ValueError("init_dc must be a (3,) tensor on z's device")
+    if luts is not None:
+        for t in luts:
+            if t.shape != (2, 256) or t.device != z.device:
+                raise ValueError(
+                    "luts must be two (2, 256) tensors on z's device"
+                )
+
+
+def encode_entries(
+    z: torch.Tensor,
+    geom: FrameGeometry,
+    capacity_bytes: int,
+    init_dc: torch.Tensor | None = None,
+    luts: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E, 64) int16 scan entries -> (bytes (capacity_bytes,) uint8,
+    total_bits int32 scalar), as ops/entropy.encode_entries.
+
+    init_dc: (3,) initial DC predictors (Y, Cb, Cr), zeros by default.
+    luts: (dc, ac) (2, 256) packed `length << 20 | code` tables, Annex K by
+    default.
+    """
+    global launches
+    _check_operands(z, geom, capacity_bytes, init_dc, luts)
+    device = z.device
+    if device.type == "cpu":
+        return entropy_ops.encode_entries(
+            z, geom, capacity_bytes, init_dc, luts
+        )
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if init_dc is None:
+        init_dc = torch.zeros(3, dtype=torch.int32, device=device)
+    if luts is None:
+        luts = entropy_ops.device_luts(device)
+    dc_lut, ac_lut = luts
+    init_dc = init_dc.to(torch.int32).contiguous()
+    dc_lut = dc_lut.to(torch.int32).contiguous()
+    ac_lut = ac_lut.to(torch.int32).contiguous()
+    num_entries = z.shape[0]
+    entry_bits = torch.empty(num_entries, dtype=torch.int32, device=device)
+    tile_sums = torch.empty(
+        -(-num_entries // _SCAN_TILE), dtype=torch.int32, device=device
+    )
+    total_bits = torch.empty(1, dtype=torch.int32, device=device)
+    words = torch.empty(capacity_bytes // 4, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        err = _kernel()(
+            z.data_ptr(), num_entries, geom.h_factor * geom.v_factor,
+            init_dc.data_ptr(), dc_lut.data_ptr(), ac_lut.data_ptr(),
+            entry_bits.data_ptr(), tile_sums.data_ptr(), total_bits.data_ptr(),
+            words.data_ptr(), capacity_bytes // 4,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"entropy kernel launch failed: cudaError_t {err}")
+    launches += 1
+    # The kernel stores byte-swapped words: their bytes are the stream.
+    return words.view(torch.uint8), total_bits[0]

@@ -2,12 +2,17 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from jpeg_encoder_torch/csrc, holds each
-against its plain PyTorch version, drives the main path (BMP file -> JFIF
-file with jpeg_encoder_torch.pipeline.encode_file on the card) at 1080p,
-4K and odd geometries at every subsampling ratio, checks every file
-byte for byte against the port's CPU path (and small ones against the
-NumPy oracle), and times the kernels and the end-to-end encode. Any
+Builds the port's CUDA kernels from jpeg_encoder_torch/csrc (one nvcc per
+source, all at once), holds each against its plain PyTorch version (K1
+RealDCT, K4 entropy and K3 binDCT exactly; K2 --fast-dct to max |diff| 1 at
+a mismatch rate below 1e-3, and 5e-4 against K1), drives the main paths
+(BMP file -> JFIF file with jpeg_encoder_torch.pipeline.encode_file on the
+card) with RealDCT at 1080p, 4K and odd geometries at every subsampling
+ratio, with binDCT (bug-parity and descaled) at 1080p and odd geometries,
+and with --fast-dct at 1080p, checks every exact file byte for byte
+against the port's CPU path (and small ones against the NumPy oracle) and
+the --fast-dct file against the CPU entropy coder run on the card's own
+coefficients, and times the kernels and the end-to-end encodes. Any
 mismatch or error exits non-zero before the final line, which is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -62,6 +67,30 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
+def busy_ms(fn, reps: int = REPS) -> float | None:
+    """Device-busy milliseconds per fn() from torch.profiler: the summed
+    durations of the kernels, copies and fills it ran, without the gaps in
+    which the card waits for the host to launch them. None if the profiler
+    saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    return total_us / 1e3 / reps if total_us else None
+
+
+def fmt(ms: float | None) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def host_ms(fn, reps: int = 10) -> float:
     """Median wall milliseconds of fn(), which must end in a device sync."""
     for _ in range(2):
@@ -107,31 +136,75 @@ def adversarial_entries(geom) -> np.ndarray:
     return z
 
 
-def k1_phase(cuda, rng) -> float:
-    """RealDCT kernel vs its plain version on CPU tensors; max |error|."""
-    from jpeg_encoder_torch.kernels import dct as dct_kernel
+def random_planes(rng, y_shape, c_shape) -> list[torch.Tensor]:
+    planes = [torch.from_numpy(rng.integers(0, 256, y_shape, dtype=np.uint8))]
+    return planes + [
+        torch.from_numpy(rng.integers(0, 256, c_shape, dtype=np.uint8))
+        for _ in range(2)
+    ]
 
+
+PLANE_SHAPES = (
+    ("1080p 4:2:0", (1088, 1920), (544, 960)),
+    ("1080p 4:4:4", (1080, 1920), (1080, 1920)),
+)
+
+
+def exact_dct_phase(tag, fn, cuda, rng, variants) -> float:
+    """A DCT kernel vs its plain version on CPU tensors, on random planes
+    at 1080p 4:2:0 and 4:4:4, for each tuple of trailing arguments in
+    variants; it must be exact. Returns the max |error|."""
     worst = 0
-    for label, y_shape, c_shape in (
-        ("1080p 4:2:0", (1088, 1920), (544, 960)),
-        ("1080p 4:4:4", (1080, 1920), (1080, 1920)),
-    ):
-        planes = [torch.from_numpy(rng.integers(0, 256, y_shape, dtype=np.uint8))]
-        planes += [
-            torch.from_numpy(rng.integers(0, 256, c_shape, dtype=np.uint8))
-            for _ in range(2)
-        ]
-        for quality in (None, 90):
-            got = dct_kernel.real_dct_quant_planes_zigzag(
-                *(p.to(cuda) for p in planes), quality
-            )
+    for label, y_shape, c_shape in PLANE_SHAPES:
+        planes = random_planes(rng, y_shape, c_shape)
+        for args in variants:
+            got = fn(*(p.to(cuda) for p in planes), *args)
             torch.cuda.synchronize()
-            want = dct_kernel.real_dct_quant_planes_zigzag(*planes, quality)
+            want = fn(*planes, *args)
             for g, w in zip(got, want):
                 err = int((g.cpu().to(torch.int32) - w.to(torch.int32)).abs().max())
                 worst = max(worst, err)
-                check(err == 0, f"K1 {label} q={quality}: max |err| {err}")
-        print(f"K1 {label}: kernel == plain (exact), quality None and 90", flush=True)
+                check(err == 0, f"{tag} {label} {args}: max |err| {err}")
+        print(f"{tag} {label}: kernel == plain (exact) for (quality"
+              f"{', descale' if len(variants[0]) > 1 else ''}) in {variants}",
+              flush=True)
+    return float(worst)
+
+
+def k2_phase(cuda, rng) -> float:
+    """--fast-dct kernel vs its plain version (on CPU tensors) and vs the
+    exact K1 on the card; max |error| against the plain version."""
+    from jpeg_encoder_torch.kernels import dct as dct_kernel
+
+    # The plain version's matmul must be full float32, never TF32.
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32,
+          "float32 matmuls would run in TF32")
+    worst = 0
+    for label, y_shape, c_shape in PLANE_SHAPES:
+        planes = random_planes(rng, y_shape, c_shape)
+        dev = [p.to(cuda) for p in planes]
+        for quality in (None, 90):
+            got = torch.cat(dct_kernel.real_dct_fast_planes_zigzag(*dev, quality))
+            torch.cuda.synchronize()
+            got = got.cpu().to(torch.int32)
+            rates = []
+            for name, want, limit in (
+                ("plain", dct_kernel.real_dct_fast_planes_zigzag(*planes, quality),
+                 1e-3),
+                ("K1", dct_kernel.real_dct_quant_planes_zigzag(*dev, quality),
+                 5e-4),
+            ):
+                d = (got - torch.cat(want).cpu().to(torch.int32)).abs()
+                err, rate = int(d.max()), float((d > 0).double().mean())
+                if name == "plain":
+                    worst = max(worst, err)
+                check(err <= 1 and rate < limit,
+                      f"K2 {label} q={quality} vs {name}: max |err| {err}, "
+                      f"mismatch rate {rate}")
+                rates.append(f"vs {name} max |err| {err}, mismatch rate "
+                             f"{rate:.3e} ({int((d > 0).sum())} of {d.numel()})")
+            print(f"K2 {label} q={quality}: " + "; ".join(rates), flush=True)
     return float(worst)
 
 
@@ -187,71 +260,160 @@ def k4_phase(cuda, images_1080) -> float:
     return float(worst)
 
 
+def checkerboard(size: int = 32) -> np.ndarray:
+    """A black/white pixel checkerboard: at 4:4:4, binDCT and quality 100
+    its raw lifting outputs leave the scan's 10-bit AC range."""
+    y, x = np.mgrid[0:size, 0:size]
+    return np.repeat((((x + y) % 2) * 255).astype(np.uint8)[..., None], 3, -1)
+
+
+def check_fast_file(cuda, label, rgb, config, got: bytes) -> None:
+    """--fast-dct on the card: its coefficients within the K2 tolerance of
+    the CPU path's (and of the exact RealDCT's), and everything after the
+    DCT exact: the file is the CPU entropy coder's over the card's own
+    coefficients."""
+    import dataclasses
+
+    from jpeg_encoder_tpu import tables
+    from jpeg_encoder_tpu.io import jfif
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    result, coeffs = pipeline.encode_array(rgb, config, device=cuda,
+                                           return_coeffs=True)
+    check(result.file_bytes == got, f"e2e {label}: card runs differ")
+    rates = []
+    for name, ref_config, limit in (
+        ("CPU path", config, 1e-3),
+        ("exact RealDCT", dataclasses.replace(config, fast_dct=False), 5e-4),
+    ):
+        _, want = pipeline.encode_array(rgb, ref_config, device="cpu",
+                                        return_coeffs=True)
+        d = np.concatenate([np.abs(c.astype(np.int32) - w.astype(np.int32))
+                            for c, w in zip(coeffs, want)])
+        err, rate = int(d.max()), float((d > 0).mean())
+        check(err <= 1 and rate < limit,
+              f"e2e {label} vs {name}: max |err| {err}, mismatch rate {rate}")
+        rates.append(f"vs {name} mismatch rate {rate:.3e}")
+    geom = result.geom
+    zz = [torch.from_numpy(c[:, tables.ZIGZAG_ORDER].copy()) for c in coeffs]
+    z = entropy_ops.marshal_scan_inputs(*zz, geom)
+    payload, bits = entropy_ops.encode_entries(
+        z, geom, entropy_ops.worst_case_capacity_bytes(geom)
+    )
+    payload = payload[: (int(bits) + 7) // 8].numpy().tobytes()
+    check(got == jfif.assemble(geom, payload, quality=config.quality),
+          f"e2e {label}: file != CPU entropy coder over the card's coefficients")
+    print(f"e2e {label}: {len(got)} B, coefficients " + ", ".join(rates)
+          + "; file == CPU entropy coder over the card's coefficients",
+          flush=True)
+
+
 def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
-    """Drive the main path on the card, then hold every file against the
-    CPU path (and the small ones against the oracle). Returns the kernel
-    launch counts of the card runs alone."""
+    """Drive the main paths on the card, then hold every file against the
+    CPU path (and the small ones against the oracle; --fast-dct as
+    check_fast_file says). Returns the kernel launch counts of the card runs
+    alone."""
+    import dataclasses
+
     from jpeg_encoder_tpu import oracle
-    from jpeg_encoder_tpu.config import EncoderConfig
+    from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
     from jpeg_encoder_tpu.io import bmp, jfif
     from jpeg_encoder_torch import pipeline
-    from jpeg_encoder_torch.kernels import dct as dct_kernel
-    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 
     rng = np.random.default_rng(11)
-    cases = []  # (label, rgb, config, oracle_check)
+    cases = []  # (label, rgb, config, check: "cpu", "oracle" or "fast")
     default = EncoderConfig()
+    bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
+    descale = dataclasses.replace(bin_dct, bin_dct_descale=True)
     for name, rgb in images_1080.items():
-        cases.append((f"{name} 1920x1080 4:2:0", rgb, default, False))
+        cases.append((f"{name} 1920x1080 4:2:0", rgb, default, "cpu"))
     for name, rgb in images_4k.items():
-        cases.append((f"{name} 3840x2160 4:2:0", rgb, default, False))
+        cases.append((f"{name} 3840x2160 4:2:0", rgb, default, "cpu"))
     first = next(iter(images_1080.values()))
     for ratio in ((4, 2, 2), (4, 4, 4)):
         cases.append((f"1920x1080 {ratio}", first,
-                      EncoderConfig(subsampling_ratio=ratio), False))
+                      EncoderConfig(subsampling_ratio=ratio), "cpu"))
     cases.append(("1920x1080 4:2:0 quality 90", first,
-                  EncoderConfig(quality=90), False))
+                  EncoderConfig(quality=90), "cpu"))
+    for ratio in ((4, 2, 0), (4, 2, 2), (4, 4, 4)):
+        cases.append((f"bin-dct 1920x1080 {ratio}", first,
+                      dataclasses.replace(bin_dct, subsampling_ratio=ratio),
+                      "cpu"))
+    cases.append(("bin-dct descale 1920x1080 4:2:0", first, descale, "cpu"))
+    cases.append(("bin-dct descale 1920x1080 4:2:0 quality 90", first,
+                  dataclasses.replace(descale, quality=90), "cpu"))
+    cases.append(("fast-dct 1920x1080 4:2:0", first,
+                  EncoderConfig(fast_dct=True), "fast"))
     for width, height in ((517, 333), (33, 17), (1921, 1089)):
         rgb = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+        kind = "oracle" if width < 1000 else "cpu"
         for ratio in ((4, 2, 0), (4, 2, 2), (4, 4, 4)):
             cases.append((f"{width}x{height} {ratio}", rgb,
-                          EncoderConfig(subsampling_ratio=ratio),
-                          width < 1000))
+                          EncoderConfig(subsampling_ratio=ratio), kind))
+            if width < 1000:
+                cases.append((f"bin-dct {width}x{height} {ratio}", rgb,
+                              dataclasses.replace(bin_dct,
+                                                  subsampling_ratio=ratio),
+                              kind))
+    board = dataclasses.replace(bin_dct, subsampling_ratio=(4, 4, 4),
+                                quality=100)
+    cases.append(("bin-dct checkerboard 32x32 4:4:4 quality 100",
+                  checkerboard(), board, "cpu"))
     paths = []
     for i, (label, rgb, config, _) in enumerate(cases):
         src = os.path.join(tmp, f"case{i}.bmp")
         bmp.write(src, rgb)
         paths.append((src, os.path.join(tmp, f"case{i}_cuda.jpg")))
 
-    # The main path on the card, alone between the reset and the read.
-    dct_kernel.launches = 0
-    entropy_kernel.launches = 0
+    # The main paths on the card, alone between the reset and the read.
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
     for (label, _, config, _), (src, dst) in zip(cases, paths):
         pipeline.encode_file(src, dst, config, device=cuda)
-    counts = {"realdct": dct_kernel.launches, "entropy": entropy_kernel.launches}
-    check(counts["realdct"] > 0 and counts["entropy"] > 0,
-          f"the main path launched no kernel: {counts}")
+    counts = {k.name: k.launches for k in kernels}
+    check(all(counts.values()), f"a kernel of the main paths never ran: {counts}")
+    print(f"e2e launches: {counts}", flush=True)
 
-    for (label, rgb, config, with_oracle), (src, dst) in zip(cases, paths):
+    for (label, rgb, config, kind), (src, dst) in zip(cases, paths):
         with open(dst, "rb") as f:
             got = f.read()
+        if kind == "fast":
+            check_fast_file(cuda, label, rgb, config, got)
+            continue
         want = pipeline.encode_array(rgb, config, device="cpu").file_bytes
         check(got == want, f"e2e {label}: card file != CPU file")
-        if with_oracle:
+        if kind == "oracle":
             golden = oracle.encode_oracle(rgb, config)
             check(got == jfif.assemble(golden.geom, golden.entropy_bytes,
                                        quality=config.quality),
                   f"e2e {label}: file != oracle")
         print(f"e2e {label}: {len(got)} B, card == CPU"
-              + (" == oracle" if with_oracle else ""), flush=True)
+              + (" == oracle" if kind == "oracle" else ""), flush=True)
+
+    # The checkerboard's AC sizes reach 11-13 bits: with validate the port
+    # raises on the card as the reference (and the oracle) do.
+    for device in (cuda, "cpu"):
+        try:
+            pipeline.encode_array(checkerboard(),
+                                  dataclasses.replace(board, validate=True),
+                                  device=device)
+        except ValueError as e:
+            check("AC coefficient bit length" in str(e), str(e))
+        else:
+            check(False, f"checkerboard with validate on {device} did not raise")
+    print("e2e bin-dct checkerboard with validate: ValueError on the card and "
+          "on CPU, as the reference", flush=True)
     return counts
 
 
 def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
-    """Kernel vs plain times, the device time of each encode stage, and
+    """Kernel vs plain times (CUDA events around each call, and the
+    device-busy time inside it), the device time of each encode stage, and
     the end-to-end time per image, at 1080p and 4K (4:2:0, corpus
-    content). Returns the 1080p kernel and plain times."""
-    from jpeg_encoder_tpu.config import EncoderConfig
+    content). Returns the 1080p kernel and plain event times."""
+    from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
@@ -259,6 +421,8 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
     from jpeg_encoder_torch.ops import entropy as entropy_ops
 
     config = EncoderConfig()
+    bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
+    fast = EncoderConfig(fast_dct=True)
     times = {}
     for label, rgb in (
         ("1920x1080", next(iter(images_1080.values()))),
@@ -280,11 +444,19 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
             ("entropy",
              lambda: entropy_kernel.encode_entries(z, geom, cap),
              lambda: entropy_ops.encode_entries(z, geom, cap)),
+            ("bindct",
+             lambda: dct_kernel.bin_dct_quant_planes_zigzag(*planes),
+             lambda: dct_ops.bin_dct_quant_planes_zigzag(*planes)),
+            ("fastdct",
+             lambda: dct_kernel.real_dct_fast_planes_zigzag(*planes),
+             lambda: dct_ops.real_dct_fast_planes_zigzag(*planes)),
         ):
             p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
             times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
             print(f"time {name} {label} 4:2:0: kernel {(k1 + k2) / 2:.4f} ms, "
-                  f"plain {(p1 + p2) / 2:.4f} ms ({card})", flush=True)
+                  f"plain {(p1 + p2) / 2:.4f} ms; device-busy kernel "
+                  f"{fmt(busy_ms(kernel))} ms, plain {fmt(busy_ms(plain))} ms "
+                  f"({card})", flush=True)
 
         stages = {
             "colour+pad+subsample": lambda: front_planes(rgb_dev, geom),
@@ -296,14 +468,37 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
                 lambda: entropy_kernel.encode_entries(z, geom, cap),
             "encode_core": lambda: pipeline.encode_core(
                 rgb_dev, geom, config.dct_algorithm, cap, with_coeffs=False),
+            "encode_core bin-dct": lambda: pipeline.encode_core(
+                rgb_dev, geom, bin_dct.dct_algorithm, cap, with_coeffs=False),
+            "encode_core fast-dct": lambda: pipeline.encode_core(
+                rgb_dev, geom, fast.dct_algorithm, cap, with_coeffs=False,
+                fast_dct=True),
         }
         parts = ", ".join(f"{k} {cuda_ms(f):.4f}" for k, f in stages.items())
         print(f"device ms {label} 4:2:0: {parts} ({card})", flush=True)
+        parts = ", ".join(f"{k} {fmt(busy_ms(f))}" for k, f in stages.items()
+                          if k.startswith("encode_core"))
+        print(f"device-busy ms {label} 4:2:0: {parts} ({card})", flush=True)
 
-        ms = host_ms(lambda: pipeline.encode_array(rgb, config, device=cuda))
-        print(f"time e2e encode_array {label} 4:2:0: {ms:.3f} ms/image, "
-              f"numpy RGB in -> JFIF bytes out ({card})", flush=True)
+        variants = [("real-dct", config)]
+        if label == "1920x1080":
+            variants += [("bin-dct", bin_dct), ("fast-dct", fast)]
+        for name, cfg in variants:
+            ms = host_ms(lambda: pipeline.encode_array(rgb, cfg, device=cuda))
+            print(f"time e2e encode_array {name} {label} 4:2:0: {ms:.3f} "
+                  f"ms/image, numpy RGB in -> JFIF bytes out ({card})",
+                  flush=True)
     return times
+
+
+def all_kernels():
+    """Every kernel of the port: K1 realdct, K4 entropy, K3 bindct, K2
+    fastdct."""
+    from jpeg_encoder_torch.kernels import dct as dct_kernel
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+
+    return (dct_kernel.REALDCT, entropy_kernel.ENTROPY, dct_kernel.BINDCT,
+            dct_kernel.FASTDCT)
 
 
 def main() -> int:
@@ -313,8 +508,6 @@ def main() -> int:
         return 2
     from jpeg_encoder_tpu.utils import corpus
     from jpeg_encoder_torch.kernels import _build
-    from jpeg_encoder_torch.kernels import dct as dct_kernel
-    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 
     cuda = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
@@ -324,8 +517,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build()
-    _build.load()
-    print(f"build: nvcc {' '.join(_build.NVCC_FLAGS)} -> {_build.LIB_PATH} "
+    for name in _build.names():
+        _build.load(name)
+    print(f"build: {len(_build.names())} nvcc in parallel, "
+          f"{' '.join(_build.NVCC_FLAGS)} -> {_build.BUILD_DIR}/lib*.so "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
 
     rng = np.random.default_rng(20260)
@@ -333,22 +528,29 @@ def main() -> int:
     images_4k = {name: corpus.CORPUS[name](2160, 3840)
                  for name in ("landscape", "architecture")}
 
-    k1_err = k1_phase(cuda, rng)
-    k4_err = k4_phase(cuda, images_1080)
+    from jpeg_encoder_torch.kernels import dct as dct_kernel
+
+    errors = {
+        "realdct": exact_dct_phase(
+            "K1", dct_kernel.real_dct_quant_planes_zigzag, cuda, rng,
+            [(None,), (90,)]),
+        "bindct": exact_dct_phase(
+            "K3", dct_kernel.bin_dct_quant_planes_zigzag, cuda, rng,
+            [(q, d) for q in (None, 90) for d in (False, True)]),
+    }
+    errors["fastdct"] = k2_phase(cuda, rng)
+    errors["entropy"] = k4_phase(cuda, images_1080)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
         counts = e2e_phase(cuda, images_1080, images_4k, tmp)
     times = timing_phase(cuda, images_1080, images_4k, card)
     check("jax" not in sys.modules, "something imported JAX")
 
-    kernels = []
-    for name, module, err in (
-        ("realdct", dct_kernel, k1_err), ("entropy", entropy_kernel, k4_err),
-    ):
-        kernels.append({
-            "name": name, "route": "cuda", "source": module.SOURCE,
-            "replaces": module.REPLACES, "launches": counts[name],
-            "max_abs_err": err, "ms": times[name][0], "plain_ms": times[name][1],
-        })
+    kernels = [{
+        "name": k.name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces, "launches": counts[k.name],
+        "max_abs_err": errors[k.name], "ms": times[k.name][0],
+        "plain_ms": times[k.name][1],
+    } for k in all_kernels()]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,25 @@
-"""Build and load the CUDA kernels (csrc/*.cu) as one shared library.
+"""Build and load the CUDA kernels, one shared library per csrc/*.cu.
 
-nvcc compiles every csrc/*.cu for Hopper (sm_90a) into
-jpeg_encoder_torch/_build/libjpeg_torch_kernels.so, which ctypes loads;
-the kernels have a plain C interface, so no PyTorch header is compiled
-(seconds of nvcc instead of minutes). The build runs at first use and
-again whenever a source is newer than the library. It is never run at
-import time: the CPU-only test machine imports every module and has no
-nvcc.
+nvcc compiles each csrc/<name>.cu for Hopper (sm_90a) into
+jpeg_encoder_torch/_build/lib<name>.so, which ctypes loads; the kernels have
+a plain C interface, so no PyTorch header is compiled (seconds of nvcc
+instead of minutes). build() starts one nvcc per source, all at once. A
+library is built at its first use and again whenever its source (or a
+shared .cuh) is newer. Nothing is built at import time: the CPU-only test
+machine imports every module and has no nvcc.
 
--fmad=false and no --use_fast_math: the kernels' results must equal the
-plain PyTorch versions bit for bit, which rules out fused multiply-adds
-and approximate division. A failed build raises with nvcc's stderr; there
-is no fallback.
+-fmad=false and no --use_fast_math for every source: the exact kernels'
+results must equal the plain PyTorch versions bit for bit, which rules out
+contracted multiply-adds and approximate division (a kernel that is not
+exact by contract spells its fused multiply-adds out). A failed build
+raises with nvcc's stderr; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import glob
 import os
 import shutil
@@ -26,7 +29,6 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libjpeg_torch_kernels.so")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -34,11 +36,19 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
-def sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def names() -> list[str]:
+    """The kernel sources, csrc/<name>.cu, by name."""
+    return sorted(
+        os.path.splitext(os.path.basename(p))[0]
+        for p in glob.glob(os.path.join(CSRC, "*.cu"))
+    )
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
 def nvcc_path() -> str:
@@ -55,39 +65,85 @@ def nvcc_path() -> str:
     )
 
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+def _stale(name: str) -> bool:
+    path = lib_path(name)
+    if not os.path.exists(path):
         return True
-    built = os.path.getmtime(LIB_PATH)
-    deps = sources() + glob.glob(os.path.join(CSRC, "*.cuh"))
+    built = os.path.getmtime(path)
+    deps = [os.path.join(CSRC, f"{name}.cu")]
+    deps += glob.glob(os.path.join(CSRC, "*.cuh"))
     return any(os.path.getmtime(p) > built for p in deps)
 
 
-def build() -> None:
-    """Compile csrc/*.cu into LIB_PATH."""
+def build(which: list[str] | None = None) -> None:
+    """Compile csrc/<name>.cu into lib_path(name) for each name (all by
+    default), one nvcc process per source, all running at once."""
     nvcc = nvcc_path()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # Per-process temporary name: concurrent builds must not interleave
-    # writes into one file; os.replace installs the finished library.
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    jobs = []
+    for name in which or names():
+        # Per-process temporary name: concurrent builds must not interleave
+        # writes into one file; os.replace installs the finished library.
+        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        jobs.append((name, tmp, cmd, proc))
+    errors = []
+    for name, tmp, cmd, proc in jobs:
+        _, stderr = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, lib_path(name))
+            continue
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}"
+        errors.append(
+            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{stderr}"
         )
-    os.replace(tmp, LIB_PATH)
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' shared library, built first if missing or stale."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """The shared library of csrc/<name>.cu, built first if missing or
+    stale."""
     with _lock:
-        if _lib is None:
-            if _stale():
-                build()
-            _lib = ctypes.CDLL(LIB_PATH)
-        return _lib
+        if name not in _libs:
+            if _stale(name):
+                build([name])
+            _libs[name] = ctypes.CDLL(lib_path(name))
+        return _libs[name]
+
+
+@dataclasses.dataclass(eq=False)
+class Kernel:
+    """One kernel: its source csrc/<name>.cu, the C entry point it exports,
+    the TPU kernel it replaces, and its launch count."""
+
+    name: str
+    symbol: str
+    argtypes: tuple
+    replaces: str  # file:line of the Pallas kernel in jpeg_encoder_tpu
+    launches: int = 0  # since the last reset; the CPU path does not count
+
+    @property
+    def source(self) -> str:
+        return f"jpeg_encoder_torch/csrc/{self.name}.cu"
+
+    @functools.cached_property
+    def _fn(self):
+        fn = getattr(load(self.name), self.symbol)
+        fn.argtypes = list(self.argtypes)
+        fn.restype = ctypes.c_int
+        return fn
+
+    def launch(self, *args) -> None:
+        """Call the entry point (which returns the launch's cudaError_t)
+        and count the launch; raise if it failed."""
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: cudaError_t {err}"
+            )
+        self.launches += 1

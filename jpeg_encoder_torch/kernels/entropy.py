@@ -11,29 +11,19 @@ kernel.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from jpeg_encoder_tpu.config import FrameGeometry
-from jpeg_encoder_torch.kernels import _build
+from jpeg_encoder_torch.kernels._build import Kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 
-SOURCE = "jpeg_encoder_torch/csrc/entropy.cu"
-REPLACES = "jpeg_encoder_tpu/kernels/entropy_pallas.py:570"
+_P, _I = ctypes.c_void_p, ctypes.c_int
+ENTROPY = Kernel(
+    "entropy", "jt_entropy_encode", (_P, _I, _I) + (_P,) * 7 + (_I, _P),
+    replaces="jpeg_encoder_tpu/kernels/entropy_pallas.py:570",
+)
 _SCAN_TILE = 4096  # entries per scan tile (kScanTile in entropy.cu)
-
-# Kernel launches since the last reset (the CPU path does not count).
-launches = 0
-
-
-@functools.cache
-def _kernel():
-    fn = _build.load().jt_entropy_encode
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, i, p, p, p, p, p, p, p, i, p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _check_operands(z, geom, capacity_bytes, init_dc, luts) -> None:
@@ -83,7 +73,6 @@ def encode_entries(
     luts: (dc, ac) (2, 256) packed `length << 20 | code` tables, Annex K by
     default.
     """
-    global launches
     _check_operands(z, geom, capacity_bytes, init_dc, luts)
     device = z.device
     if device.type == "cpu":
@@ -108,15 +97,12 @@ def encode_entries(
     total_bits = torch.empty(1, dtype=torch.int32, device=device)
     words = torch.empty(capacity_bytes // 4, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
-        err = _kernel()(
+        ENTROPY.launch(
             z.data_ptr(), num_entries, geom.h_factor * geom.v_factor,
             init_dc.data_ptr(), dc_lut.data_ptr(), ac_lut.data_ptr(),
             entry_bits.data_ptr(), tile_sums.data_ptr(), total_bits.data_ptr(),
             words.data_ptr(), capacity_bytes // 4,
             torch.cuda.current_stream(device).cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"entropy kernel launch failed: cudaError_t {err}")
-    launches += 1
     # The kernel stores byte-swapped words: their bytes are the stream.
     return words.view(torch.uint8), total_bits[0]

@@ -1,13 +1,14 @@
 """End-to-end encode: the device path on one explicit device + host assembly.
 
-Port of the default path of jpeg_encoder_tpu/pipeline.py: encode_array ->
-encode_core with RealDCT, the Annex-K tables, no restart markers and no
-optimized Huffman, at every subsampling ratio and quality. Colour,
-padding, subsampling and the scan marshal are plain PyTorch ops; the DCT
-and the entropy coder are the two kernels (kernels/dct.py and
-kernels/entropy.py), which run their CUDA code on CUDA tensors and their
-plain PyTorch versions on CPU tensors. The host decodes the BMP, stuffs
-0xFF bytes and writes the JFIF container (jpeg_encoder_tpu.io, shared).
+Port of jpeg_encoder_tpu/pipeline.py: encode_array -> encode_core with
+every DCT variant (RealDCT, --fast-dct, binDCT with and without the
+descale fix), the Annex-K tables, no restart markers and no optimized
+Huffman, at every subsampling ratio and quality. Colour, padding,
+subsampling and the scan marshal are plain PyTorch ops; the DCT and the
+entropy coder are kernels (kernels/dct.py and kernels/entropy.py), which
+run their CUDA code on CUDA tensors and their plain PyTorch versions on
+CPU tensors. The host decodes the BMP, stuffs 0xFF bytes and writes the
+JFIF container (jpeg_encoder_tpu.io, shared).
 
 Every entry point takes its device explicitly; nothing here picks one.
 """
@@ -58,14 +59,22 @@ def dct_planes_zigzag(
     cr_plane: torch.Tensor,
     algorithm: DctAlgorithm,
     quality: int | None = None,
+    *,
+    fast_dct: bool = False,
+    bin_dct_descale: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Padded planes -> (N_i, 64) int16 zigzag quantized coefficients."""
-    if algorithm != DctAlgorithm.REAL_DCT:
-        raise NotImplementedError(
-            f"{algorithm.value} is not ported to jpeg_encoder_torch yet"
-        )
-    return dct_kernel.real_dct_quant_planes_zigzag(
-        y_plane, cb_plane, cr_plane, quality
+    """Padded planes -> (N_i, 64) int16 zigzag quantized coefficients.
+
+    Routes as jpeg_encoder_tpu.pipeline.dct_planes_zigzag does: fast_dct
+    only selects the RealDCT flavour, bin_dct_descale only the binDCT
+    quantization; each is ignored by the other algorithm.
+    """
+    if algorithm == DctAlgorithm.REAL_DCT:
+        dct = (dct_kernel.real_dct_fast_planes_zigzag if fast_dct
+               else dct_kernel.real_dct_quant_planes_zigzag)
+        return dct(y_plane, cb_plane, cr_plane, quality)
+    return dct_kernel.bin_dct_quant_planes_zigzag(
+        y_plane, cb_plane, cr_plane, quality, bin_dct_descale
     )
 
 
@@ -82,6 +91,9 @@ def encode_core(
     validate: bool = False,
     with_coeffs: bool = True,
     quality: int | None = None,
+    *,
+    fast_dct: bool = False,
+    bin_dct_descale: bool = False,
 ) -> dict[str, torch.Tensor]:
     """(H, W, 3) uint8 on a device -> packed payload (+ coefficients).
 
@@ -93,7 +105,10 @@ def encode_core(
     y = sample.pad_plane(y, geom)
     cb = sample.subsample_plane(sample.pad_plane(cb, geom), geom)
     cr = sample.subsample_plane(sample.pad_plane(cr, geom), geom)
-    y_z, cb_z, cr_z = dct_planes_zigzag(y, cb, cr, algorithm, quality)
+    y_z, cb_z, cr_z = dct_planes_zigzag(
+        y, cb, cr, algorithm, quality,
+        fast_dct=fast_dct, bin_dct_descale=bin_dct_descale,
+    )
     z = entropy_ops.marshal_scan_inputs(y_z, cb_z, cr_z, geom)
     payload, total_bits = entropy_kernel.encode_entries(
         z, geom, capacity_bytes
@@ -130,9 +145,6 @@ class EncodeResult:
 def _check_supported(config: EncoderConfig) -> None:
     """Refuse the options whose port is still to come (ROADMAP.md)."""
     unported = {
-        "dct_algorithm=bin-dct": config.dct_algorithm != DctAlgorithm.REAL_DCT,
-        "fast_dct": config.fast_dct,
-        "bin_dct_descale": config.bin_dct_descale,
         "restart_interval": config.restart_interval is not None,
         "optimize_huffman": config.optimize_huffman,
     }
@@ -170,6 +182,7 @@ def encode_array(
         out = encode_core(
             device_rgb, geom, config.dct_algorithm, capacity,
             config.validate, return_coeffs, config.quality,
+            fast_dct=config.fast_dct, bin_dct_descale=config.bin_dct_descale,
         )
         if config.validate:
             validate_scan_ranges(

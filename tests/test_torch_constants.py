@@ -3,7 +3,9 @@
 import numpy as np
 import pytest
 
+from jpeg_encoder_tpu import tables
 from jpeg_encoder_tpu.kernels import dct_pallas
+from jpeg_encoder_tpu.ops import dct as jax_dct
 from jpeg_encoder_tpu.ops import entropy as jax_entropy
 from jpeg_encoder_torch import constants
 
@@ -28,3 +30,24 @@ def test_default_packed_luts_match_jax():
     for mine, theirs in zip(got, want):
         assert mine.shape == (2, 256)
         assert _same_bits(mine, theirs)
+
+
+@pytest.mark.parametrize("quality", [None, 35, 90])
+def test_bindct_constants_match_jax(quality):
+    """The binDCT kernel's zigzag quant rows (dct_pallas._bindct_constants)
+    and its zigzag descale gains (ops/dct.bindct_descale_2d, permuted as
+    bin_dct_quant_planes_zigzag_pallas_t permutes them)."""
+    got = constants.bindct_constants(quality)
+    assert _same_bits(got.q_luma, dct_pallas._bindct_constants("y", quality)[0])
+    assert _same_bits(got.q_chroma, dct_pallas._bindct_constants("c", quality)[0])
+    assert _same_bits(got.gains, jax_dct.bindct_descale_2d()[tables.ZIGZAG_ORDER])
+
+
+def test_bindct_descale_gains_match_jax():
+    assert _same_bits(constants.bindct_descale_2d(), jax_dct.bindct_descale_2d())
+
+
+def test_fast_kron_zigzag_matches_jax():
+    got = constants.fast_kron_zigzag()
+    assert got.flags.c_contiguous
+    assert _same_bits(got, dct_pallas._fast_kron_zigzag())

@@ -109,9 +109,9 @@ def test_encode_matches_fused_kernel_interpret(rng):
     replaces (encode_entropy_fused, interpret mode, one small geometry)."""
     geom = EncoderConfig(subsampling_ratio=(4, 2, 0)).geometry(48, 32)
     coeffs = _coeffs(rng, geom)
-    before = entropy_kernel.launches
+    before = entropy_kernel.ENTROPY.launches
     got, bits = _encode(coeffs, geom, 1 << 14)
-    assert entropy_kernel.launches == before  # the CPU path launches nothing
+    assert entropy_kernel.ENTROPY.launches == before  # the CPU path launches nothing
     want, want_bits = jax_entropy.encode_scan(
         *(jnp.asarray(c) for c in coeffs), geom, 1 << 14,
         coeffs_zigzagged=True, packer="fused_interpret",

@@ -4,16 +4,21 @@
 
 Builds the port's CUDA kernels from jpeg_encoder_torch/csrc (one nvcc per
 source, all at once), holds each against its plain PyTorch version (K1
-RealDCT, K4 entropy and K3 binDCT exactly; K2 --fast-dct to max |diff| 1 at
+RealDCT, K4 entropy, K3 binDCT and K5 bitstream assembly exactly, K4 also
+over restart intervals with live_entries; K2 --fast-dct to max |diff| 1 at
 a mismatch rate below 1e-3, and 5e-4 against K1), drives the main paths
 (BMP file -> JFIF file with jpeg_encoder_torch.pipeline.encode_file on the
 card) with RealDCT at 1080p, 4K and odd geometries at every subsampling
 ratio, with binDCT (bug-parity and descaled) at 1080p and odd geometries,
-and with --fast-dct at 1080p, checks every exact file byte for byte
-against the port's CPU path (and small ones against the NumPy oracle) and
-the --fast-dct file against the CPU entropy coder run on the card's own
-coefficients, and times the kernels and the end-to-end encodes. Any
-mismatch or error exits non-zero before the final line, which is
+with --fast-dct at 1080p, with restart markers (1, 7, 120 and 10000 MCUs
+at 1080p, RealDCT and binDCT, every ratio; 240 at 4K), with optimized
+Huffman tables (alone and with restart markers) and with the assemble
+packer (K5; Annex K and optimized tables), checks every exact file byte
+for byte against the port's CPU path (and small ones against the NumPy
+oracle, whose optimized tables count its own symbols) and the --fast-dct file
+against the CPU entropy coder run on the card's own coefficients, and
+times the kernels and the end-to-end encodes. Any mismatch or error exits
+non-zero before the final line, which is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -35,6 +40,8 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPS = 20  # timed repetitions (median reported)
+RATIOS = ((4, 2, 0), (4, 2, 2), (4, 4, 4))
+INTERVALS = (1, 7, 120, 10000)  # restart intervals, MCUs
 
 
 def check(cond: bool, msg: str) -> None:
@@ -208,12 +215,27 @@ def k2_phase(cuda, rng) -> float:
     return float(worst)
 
 
+def card_entries(cuda, rgb: np.ndarray, geom) -> torch.Tensor:
+    """(E, 64) scan entries of rgb, from K1 on the card, on the CPU."""
+    from jpeg_encoder_torch.kernels import dct as dct_kernel
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    coeffs = dct_kernel.real_dct_quant_planes_zigzag(
+        *front_planes(torch.from_numpy(rgb).to(cuda), geom)
+    )
+    return entropy_ops.marshal_scan_inputs(*coeffs, geom).cpu()
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """max |got - want| of two integer tensors (got may be on the card)."""
+    return int((got.cpu().to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
 def k4_phase(cuda, images_1080) -> float:
     """Entropy kernel vs its plain version on CPU tensors; max |error|
     over the payload bytes within capacity and the bit counts."""
     from jpeg_encoder_tpu.config import EncoderConfig
     from jpeg_encoder_torch import pipeline
-    from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
     from jpeg_encoder_torch.ops import entropy as entropy_ops
 
@@ -235,15 +257,12 @@ def k4_phase(cuda, images_1080) -> float:
         check(err == 0, f"K4 {label}: max |err| {err}")
         return int(want_bits)
 
-    for ratio in ((4, 2, 0), (4, 2, 2), (4, 4, 4)):
+    for ratio in RATIOS:
         config = EncoderConfig(subsampling_ratio=ratio)
         geom = config.geometry(1920, 1080)
         cap = pipeline.default_capacity_bytes(geom)
         for name, rgb in images_1080.items():
-            coeffs = dct_kernel.real_dct_quant_planes_zigzag(
-                *front_planes(torch.from_numpy(rgb).to(cuda), geom)
-            )
-            z = entropy_ops.marshal_scan_inputs(*coeffs, geom).cpu()
+            z = card_entries(cuda, rgb, geom)
             bits = compare(f"{name} {ratio}", z, geom, cap)
             # A capacity a quarter of the payload: dropped words, true bits.
             small = max(4, bits // 32 // 4 * 4)
@@ -258,6 +277,154 @@ def k4_phase(cuda, images_1080) -> float:
         print(f"K4 1080p {ratio}: kernel == plain (corpus, adversarial, "
               "overflow)", flush=True)
     return float(worst)
+
+
+def k4_interval_phase(cuda, images_1080) -> float:
+    """K4 over restart intervals vs its plain version on CPU tensors: 1080p
+    corpus content at every ratio, intervals of 1, 7, 120 and 10000 MCUs,
+    with every entry live, with a live_entries suffix ending inside an
+    interval, and at 8 bytes a row (overflowing rows: dropped words, true
+    bit counts). Returns the max |error| over bytes and bit counts."""
+    from jpeg_encoder_tpu.config import EncoderConfig
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    worst = 0
+    for ratio in RATIOS:
+        geom = EncoderConfig(subsampling_ratio=ratio).geometry(1920, 1080)
+        z = card_entries(cuda, images_1080["architecture"], geom)
+        live = geom.num_scan_entries * 2 // 3 + 1
+        for interval in INTERVALS:
+            epi = entropy_ops.entries_per_interval(geom, interval)
+            cap = pipeline.restart_default_capacity_bytes(geom, interval)
+            for live_entries, capacity in ((None, cap), (live, cap), (None, 8)):
+                args = dict(live_entries=live_entries, entries_per_interval=epi)
+                got, bits = entropy_kernel.encode_entries(
+                    z.to(cuda), geom, capacity, **args)
+                torch.cuda.synchronize()
+                want, want_bits = entropy_kernel.encode_entries(
+                    z, geom, capacity, **args)
+                err = max(max_err(bits, want_bits), max_err(got, want))
+                worst = max(worst, err)
+                check(err == 0, f"K4 intervals {ratio} every {interval} "
+                      f"live {live_entries} capacity {capacity}: max |err| {err}")
+                if capacity == 8:
+                    overflow = int((want_bits > 64).sum())
+            print(f"K4 intervals 1080p {ratio} every {interval} MCUs "
+                  f"({want_bits.numel()} rows of {cap} B): kernel == plain "
+                  f"(all live; live_entries {live}; 8 B rows, {overflow} "
+                  "overflowing)", flush=True)
+    return float(worst)
+
+
+def k5_phase(cuda, images_1080) -> float:
+    """K5 vs its plain version on CPU tensors: the assemble tier's operands
+    of 1080p corpus content at 4:2:0 and 4:4:4, as one row (the unbroken
+    scan) and as one row per restart interval of 120 and of 1 MCUs, at a
+    fitting capacity and at 16 bytes a row. Returns the max |error|."""
+    from jpeg_encoder_tpu.config import EncoderConfig
+    from jpeg_encoder_torch import scan
+    from jpeg_encoder_torch.kernels import pack as pack_kernel
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    worst = 0
+    for ratio in ((4, 2, 0), (4, 4, 4)):
+        geom = EncoderConfig(subsampling_ratio=ratio).geometry(1920, 1080)
+        z = card_entries(cuda, images_1080["foliage"], geom)
+        for interval in (None, 120, 1):
+            epi = (None if interval is None
+                   else entropy_ops.entries_per_interval(geom, interval))
+            slot_bits, slot_lens = entropy_ops.symbolize(
+                z, geom.h_factor * geom.v_factor, entries_per_interval=epi)
+            words, offsets, row_bits = scan.assemble_operands(
+                slot_bits, slot_lens, epi or geom.num_scan_entries)
+            fit = (int(row_bits.max()) // 32 + 2) * 4
+            for cap in (fit, 16):
+                got = pack_kernel.assemble_bitstream(
+                    words.to(cuda), offsets.to(cuda), cap)
+                torch.cuda.synchronize()
+                want = pack_kernel.assemble_bitstream(words, offsets, cap)
+                err = max_err(got, want)
+                worst = max(worst, err)
+                check(err == 0, f"K5 {ratio} interval {interval} capacity "
+                      f"{cap}: max |err| {err}")
+            print(f"K5 1080p {ratio} {words.shape[0]} rows of "
+                  f"{words.shape[1]} entries: kernel == plain (capacity "
+                  f"{fit} B and 16 B a row)", flush=True)
+    return float(worst)
+
+
+class SymbolCounter:
+    """A Huffman table stand-in for oracle.encode_block that counts the
+    symbols asked of it into one row of a (4, 256) histogram and codes
+    them in 0 bits."""
+
+    def __init__(self, row: np.ndarray):
+        self.row = row
+
+    def encode_symbol(self, symbol: int) -> tuple[int, int]:
+        self.row[symbol] += 1
+        return 0, 0
+
+
+def oracle_segments(zz, geom, restart, specs):
+    """The oracle's zigzag coefficients [Y, Cb, Cr] coded bit-serially
+    with oracle.encode_block and specs (Y-DC, C-DC, Y-AC, C-AC), DC
+    predictors reset at every restart interval: (segments, bit counts)."""
+    from jpeg_encoder_tpu import oracle
+
+    order = oracle.luma_scan_order(geom)
+    step = restart or geom.num_mcus
+    segments, bits = [], []
+    for start in range(0, geom.num_mcus, step):
+        writer = oracle.BitWriter()
+        prev = [0, 0, 0]
+        for mcu in range(start, min(start + step, geom.num_mcus)):
+            for block in order[mcu]:
+                prev[0] = oracle.encode_block(zz[0][block], prev[0], specs[0],
+                                              specs[2], writer)
+            for c in (1, 2):
+                prev[c] = oracle.encode_block(zz[c][mcu], prev[c], specs[1],
+                                              specs[3], writer)
+        segments.append(np.frombuffer(writer.to_bytes(), np.uint8))
+        bits.append(writer.bit_length)
+    return segments, bits
+
+
+def oracle_file(rgb: np.ndarray, config) -> bytes:
+    """The NumPy oracle's file for config: its unbroken scan; its
+    restart-framed scan (oracle.entropy_encode_restart); or, with
+    optimize_huffman, its coefficients coded bit-serially
+    (oracle.encode_block) with the optimal tables of the symbols that
+    encode_block itself counts in a first pass over the same framing, one
+    1-padded segment per restart interval. Nothing of the port is used."""
+    import dataclasses
+
+    from jpeg_encoder_tpu import oracle, tables
+    from jpeg_encoder_tpu.io import jfif
+
+    ref = oracle.encode_oracle(rgb, dataclasses.replace(
+        config, restart_interval=None, optimize_huffman=False))
+    geom, restart, quality = ref.geom, config.restart_interval, config.quality
+    coeffs = (ref.y_coeffs, ref.cb_coeffs, ref.cr_coeffs)
+    if not config.optimize_huffman:
+        if restart is None:
+            return jfif.assemble(geom, ref.entropy_bytes, quality=quality)
+        segments, bits = oracle.entropy_encode_restart(*coeffs, geom, restart)
+        return jfif.assemble_restart(
+            geom, [np.frombuffer(s, np.uint8) for s in segments], bits,
+            restart, quality=quality)
+    zz = [c.reshape(-1, 64)[:, tables.ZIGZAG_ORDER] for c in coeffs]
+    hist = np.zeros((4, 256), np.int64)
+    oracle_segments(zz, geom, restart, [SymbolCounter(r) for r in hist])
+    specs = tuple(tables.optimal_spec(h) for h in hist)
+    segments, bits = oracle_segments(zz, geom, restart, specs)
+    if restart is None:
+        return jfif.assemble(geom, segments[0], quality=quality,
+                             dht_specs=specs)
+    return jfif.assemble_restart(geom, segments, bits, restart,
+                                 quality=quality, dht_specs=specs)
 
 
 def checkerboard(size: int = 32) -> np.ndarray:
@@ -316,13 +483,13 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
     alone."""
     import dataclasses
 
-    from jpeg_encoder_tpu import oracle
     from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
-    from jpeg_encoder_tpu.io import bmp, jfif
+    from jpeg_encoder_tpu.io import bmp
     from jpeg_encoder_torch import pipeline
 
     rng = np.random.default_rng(11)
-    cases = []  # (label, rgb, config, check: "cpu", "oracle" or "fast")
+    # (label, rgb, config, check: "cpu", "oracle" or "fast"[, packer])
+    cases = []
     default = EncoderConfig()
     bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
     descale = dataclasses.replace(bin_dct, bin_dct_descale=True)
@@ -360,8 +527,42 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
                                 quality=100)
     cases.append(("bin-dct checkerboard 32x32 4:4:4 quality 100",
                   checkerboard(), board, "cpu"))
+    # Restart markers, optimized tables, and the assemble packer (K5).
+    for ratio in RATIOS:
+        for interval in INTERVALS:
+            for name, base in (("", default), ("bin-dct ", bin_dct)):
+                cases.append((
+                    f"{name}restart {interval} 1920x1080 {ratio}", first,
+                    dataclasses.replace(base, subsampling_ratio=ratio,
+                                        restart_interval=interval), "cpu"))
+    cases.append(("restart 240 3840x2160 4:2:0",
+                  next(iter(images_4k.values())),
+                  EncoderConfig(restart_interval=240), "cpu"))
+    optimize = EncoderConfig(optimize_huffman=True)
+    cases.append(("optimize 1920x1080 4:2:0", first, optimize, "cpu"))
+    cases.append(("optimize restart 120 1920x1080 4:2:0", first,
+                  dataclasses.replace(optimize, restart_interval=120), "cpu"))
+    cases.append(("assemble restart 120 1920x1080 4:2:0", first,
+                  EncoderConfig(restart_interval=120), "cpu", "assemble"))
+    small = rng.integers(0, 256, (333, 517, 3), dtype=np.uint8)
+    for ratio in RATIOS:
+        cases.append((f"restart 7 517x333 {ratio}", small,
+                      EncoderConfig(subsampling_ratio=ratio,
+                                    restart_interval=7), "oracle"))
+    cases.append(("optimize 517x333 4:2:0", small, optimize, "oracle"))
+    cases.append(("optimize restart 7 bin-dct 517x333 4:4:4", small,
+                  dataclasses.replace(bin_dct, subsampling_ratio=(4, 4, 4),
+                                      optimize_huffman=True,
+                                      restart_interval=7), "oracle"))
+    cases.append(("assemble 517x333 4:2:2", small,
+                  EncoderConfig(subsampling_ratio=(4, 2, 2)), "oracle",
+                  "assemble"))
+    cases.append(("assemble optimize restart 7 517x333 4:2:0", small,
+                  dataclasses.replace(optimize, restart_interval=7), "oracle",
+                  "assemble"))
+    cases = [c if len(c) == 5 else c + ("fused",) for c in cases]
     paths = []
-    for i, (label, rgb, config, _) in enumerate(cases):
+    for i, (label, rgb, config, _, _) in enumerate(cases):
         src = os.path.join(tmp, f"case{i}.bmp")
         bmp.write(src, rgb)
         paths.append((src, os.path.join(tmp, f"case{i}_cuda.jpg")))
@@ -370,13 +571,19 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
-    for (label, _, config, _), (src, dst) in zip(cases, paths):
-        pipeline.encode_file(src, dst, config, device=cuda)
+    for (label, _, config, _, packer), (src, dst) in zip(cases, paths):
+        if packer == "fused":
+            pipeline.encode_file(src, dst, config, device=cuda)
+            continue
+        result = pipeline.encode_array(bmp.read(src), config, device=cuda,
+                                       packer=packer)
+        with open(dst, "wb") as f:
+            f.write(result.file_bytes)
     counts = {k.name: k.launches for k in kernels}
     check(all(counts.values()), f"a kernel of the main paths never ran: {counts}")
     print(f"e2e launches: {counts}", flush=True)
 
-    for (label, rgb, config, kind), (src, dst) in zip(cases, paths):
+    for (label, rgb, config, kind, packer), (src, dst) in zip(cases, paths):
         with open(dst, "rb") as f:
             got = f.read()
         if kind == "fast":
@@ -385,12 +592,23 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
         want = pipeline.encode_array(rgb, config, device="cpu").file_bytes
         check(got == want, f"e2e {label}: card file != CPU file")
         if kind == "oracle":
-            golden = oracle.encode_oracle(rgb, config)
-            check(got == jfif.assemble(golden.geom, golden.entropy_bytes,
-                                       quality=config.quality),
+            check(got == oracle_file(rgb, config),
                   f"e2e {label}: file != oracle")
         print(f"e2e {label}: {len(got)} B, card == CPU"
               + (" == oracle" if kind == "oracle" else ""), flush=True)
+
+    # Quirk geometries refuse restart markers before any device work.
+    for config in (EncoderConfig(restart_interval=2),
+                   EncoderConfig(restart_interval=2, optimize_huffman=True)):
+        try:
+            pipeline.encode_array(rng.integers(0, 256, (17, 33, 3), np.uint8),
+                                  config, device=cuda)
+        except ValueError as e:
+            check("quirk geometry" in str(e), str(e))
+        else:
+            check(False, "restart markers on 33x17 4:2:0 did not raise")
+    print("e2e restart markers on 33x17 4:2:0 (a quirk geometry): "
+          "ValueError on the card, as the reference", flush=True)
 
     # The checkerboard's AC sizes reach 11-13 bits: with validate the port
     # raises on the card as the reference (and the oracle) do.
@@ -408,11 +626,52 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
     return counts
 
 
+def interval_pairs(z, geom):
+    """(name, kernel, plain) of K4 in interval mode (restart every 120 MCUs,
+    one MCU row at 1080p, and every MCU) and of K5 on the assemble tier's
+    rows for one MCU row and for the unbroken scan, on z's device."""
+    import functools
+
+    from jpeg_encoder_torch import pipeline, scan
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.kernels import pack as pack_kernel
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    pairs = []
+    for interval in (120, 1):
+        epi = entropy_ops.entries_per_interval(geom, interval)
+        cap = pipeline.restart_default_capacity_bytes(geom, interval)
+        pairs.append((
+            f"entropy intervals {interval}",
+            functools.partial(entropy_kernel.encode_entries, z, geom, cap,
+                              entries_per_interval=epi),
+            functools.partial(entropy_ops.encode_entries, z, geom, cap,
+                              entries_per_interval=epi)))
+    for interval in (120, None):
+        epi = (geom.num_scan_entries if interval is None
+               else entropy_ops.entries_per_interval(geom, interval))
+        slot_bits, slot_lens = entropy_ops.symbolize(
+            z, geom.h_factor * geom.v_factor, entries_per_interval=epi)
+        words, offsets, row_bits = scan.assemble_operands(
+            slot_bits, slot_lens, epi)
+        cap = (pipeline.default_capacity_bytes(geom) if interval is None
+               else pipeline.restart_default_capacity_bytes(geom, interval))
+        pairs.append((
+            "pack" if interval else "pack one row",
+            functools.partial(pack_kernel.assemble_bitstream, words, offsets,
+                              cap),
+            functools.partial(entropy_ops.assemble_bitstream, words, offsets,
+                              cap)))
+    return pairs
+
+
 def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
     """Kernel vs plain times (CUDA events around each call, and the
     device-busy time inside it), the device time of each encode stage, and
     the end-to-end time per image, at 1080p and 4K (4:2:0, corpus
     content). Returns the 1080p kernel and plain event times."""
+    import dataclasses
+
     from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.kernels import dct as dct_kernel
@@ -437,7 +696,7 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
 
         # Turns: plain, kernel, kernel, plain; each figure is the mean of
         # the two runs' medians.
-        for name, kernel, plain in (
+        for name, kernel, plain in [
             ("realdct",
              lambda: dct_kernel.real_dct_quant_planes_zigzag(*planes),
              lambda: dct_ops.real_dct_quant_planes_zigzag(*planes)),
@@ -450,7 +709,7 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
             ("fastdct",
              lambda: dct_kernel.real_dct_fast_planes_zigzag(*planes),
              lambda: dct_ops.real_dct_fast_planes_zigzag(*planes)),
-        ):
+        ] + (interval_pairs(z, geom) if label == "1920x1080" else []):
             p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
             times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
             print(f"time {name} {label} 4:2:0: kernel {(k1 + k2) / 2:.4f} ms, "
@@ -458,6 +717,7 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
                   f"{fmt(busy_ms(kernel))} ms, plain {fmt(busy_ms(plain))} ms "
                   f"({card})", flush=True)
 
+        cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
         stages = {
             "colour+pad+subsample": lambda: front_planes(rgb_dev, geom),
             "realdct kernel":
@@ -473,32 +733,67 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
             "encode_core fast-dct": lambda: pipeline.encode_core(
                 rgb_dev, geom, fast.dct_algorithm, cap, with_coeffs=False,
                 fast_dct=True),
+            "encode_core_restart 120": lambda: pipeline.encode_core_restart(
+                rgb_dev, geom, config.dct_algorithm, cap120, 120),
+            "custom_core restart 120 assemble": lambda: pipeline.custom_core(
+                z, geom, cap120, restart_mcus=120, packer="assemble"),
         }
         parts = ", ".join(f"{k} {cuda_ms(f):.4f}" for k, f in stages.items())
         print(f"device ms {label} 4:2:0: {parts} ({card})", flush=True)
         parts = ", ".join(f"{k} {fmt(busy_ms(f))}" for k, f in stages.items()
-                          if k.startswith("encode_core"))
+                          if "_core" in k)
         print(f"device-busy ms {label} 4:2:0: {parts} ({card})", flush=True)
 
-        variants = [("real-dct", config)]
+        optimize = EncoderConfig(optimize_huffman=True)
+        variants = [("real-dct", config, "fused")]
         if label == "1920x1080":
-            variants += [("bin-dct", bin_dct), ("fast-dct", fast)]
-        for name, cfg in variants:
-            ms = host_ms(lambda: pipeline.encode_array(rgb, cfg, device=cuda))
+            variants += [
+                ("bin-dct", bin_dct, "fused"), ("fast-dct", fast, "fused"),
+                ("restart 1", EncoderConfig(restart_interval=1), "fused"),
+                ("restart 120", EncoderConfig(restart_interval=120), "fused"),
+                ("restart 120 assemble", EncoderConfig(restart_interval=120),
+                 "assemble"),
+                ("optimize", optimize, "fused"),
+                ("optimize restart 120",
+                 dataclasses.replace(optimize, restart_interval=120), "fused"),
+            ]
+        else:
+            variants += [("restart 240", EncoderConfig(restart_interval=240),
+                          "fused")]
+        for name, cfg, packer in variants:
+            ms = host_ms(lambda: pipeline.encode_array(rgb, cfg, device=cuda,
+                                                       packer=packer))
             print(f"time e2e encode_array {name} {label} 4:2:0: {ms:.3f} "
                   f"ms/image, numpy RGB in -> JFIF bytes out ({card})",
                   flush=True)
+
+    # The host's share of restart markers at their finest: joining 8,160
+    # interval segments (1-padding, byte stuffing, RSTn markers).
+    rgb = next(iter(images_1080.values()))
+    geom = config.geometry(1920, 1080)
+    cap = pipeline.restart_default_capacity_bytes(geom, 1)
+    out = pipeline.encode_core_restart(torch.from_numpy(rgb).to(cuda), geom,
+                                       config.dct_algorithm, cap, 1)
+    bits = out["bits"].cpu().numpy()
+    payloads = list(out["payloads"][:, : (int(bits.max()) + 7) // 8].cpu()
+                    .numpy())
+    bit_list = [int(b) for b in bits]
+    ms = host_ms(lambda: pipeline.restart_result(geom, payloads, bit_list, 1,
+                                                 None))
+    print(f"time host restart_result 1920x1080 4:2:0 restart 1 "
+          f"({len(bit_list)} segments): {ms:.3f} ms", flush=True)
     return times
 
 
 def all_kernels():
     """Every kernel of the port: K1 realdct, K4 entropy, K3 bindct, K2
-    fastdct."""
+    fastdct, K5 pack."""
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.kernels import pack as pack_kernel
 
     return (dct_kernel.REALDCT, entropy_kernel.ENTROPY, dct_kernel.BINDCT,
-            dct_kernel.FASTDCT)
+            dct_kernel.FASTDCT, pack_kernel.PACK)
 
 
 def main() -> int:
@@ -539,7 +834,9 @@ def main() -> int:
             [(q, d) for q in (None, 90) for d in (False, True)]),
     }
     errors["fastdct"] = k2_phase(cuda, rng)
-    errors["entropy"] = k4_phase(cuda, images_1080)
+    errors["entropy"] = max(k4_phase(cuda, images_1080),
+                            k4_interval_phase(cuda, images_1080))
+    errors["pack"] = k5_phase(cuda, images_1080)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
         counts = e2e_phase(cuda, images_1080, images_4k, tmp)
     times = timing_phase(cuda, images_1080, images_4k, card)

@@ -6,9 +6,18 @@
 // the raw DC in slot 0 -> a big-endian packed bitstream plus its true bit
 // count: DC differences along the three predictor chains (seeded from
 // init_dc), run-length symbols with ZRL and EOB, Huffman lookup in packed
-// `length << 20 | code` tables, and MSB-first packing at global offsets.
-// Words at or past num_words are dropped and total_bits still reports the
-// true length, which is how the caller detects an overflow.
+// `length << 20 | code` tables, and MSB-first packing. Words at or past
+// num_words are dropped and the bit count still reports the true length,
+// which is how the caller detects an overflow.
+//
+// Restart intervals (the TPU kernel vmapped over them): the entries are cut
+// every entries_per_interval entries (whole MCUs; the last interval may be
+// short) into independently coded streams. Interval j packs into its own
+// row of num_words words from bit 0, its DC predictors start at init_dc
+// (0 for a restart-framed scan), and interval_bits[j] is its true length;
+// an overflowing interval drops its excess words and never spills into row
+// j + 1. The unbroken scan is one interval of all entries. Entries at
+// index >= live_entries emit nothing (a fully dead interval reports 0).
 //
 // The TPU kernel carries the running bit offset from one grid step to the
 // next because its grid runs in order. Hopper gives no such order, so this
@@ -17,7 +26,9 @@
 //      entry's bit count;
 //   2. scan: an exclusive scan of the counts (a block scan per tile of
 //      4096 entries, then one CTA over the tile totals) gives every entry
-//      its global bit offset and the stream's total_bits;
+//      its global bit offset; an entry's offset in its interval is that
+//      minus the offset of the interval's first entry, and an interval's
+//      length the difference of two such offsets;
 //   3. write: each warp recomputes its entry's slot codes, places them in
 //      a shared-memory copy of the words it spans, then stores the words it
 //      owns alone and atomicOr's the (at most two) boundary words it shares
@@ -30,7 +41,8 @@
 // predictor is the raw DC of the previous entry of the same component,
 // read from device memory at the static scan distance 1 (a luma block after
 // another of its MCU), bpm - hv + 1 (an MCU's first luma block) or bpm
-// (chroma), as _entropy_kernel explains.
+// (chroma), as _entropy_kernel explains; a lookback that would leave the
+// entry's interval takes init_dc instead.
 //
 // What bounds it on Hopper: bytes moved (128 B of coefficients read twice,
 // plus the counts and the output stream) and the serial dependence of the
@@ -94,8 +106,9 @@ __device__ __forceinline__ void slot_code(int i, int v, int run_base,
 }
 
 // Slots 2*lane and 2*lane+1 of entry e, for a whole warp.
+// `first` is the index of the first entry of e's interval.
 __device__ __forceinline__ SlotPair symbolize(const int16_t* __restrict__ z,
-                                              int e, int hv,
+                                              int e, int first, int hv,
                                               const int* __restrict__ init_dc,
                                               const int* lut, int lane) {
   const int bpm = hv + 2;
@@ -109,7 +122,8 @@ __device__ __forceinline__ SlotPair symbolize(const int16_t* __restrict__ z,
     const int d = pos >= hv ? bpm : (pos == 0 ? bpm - hv + 1 : 1);
     const int init = pos < hv ? init_dc[0] : (pos == hv ? init_dc[1] : init_dc[2]);
     const int prev =
-        e < d ? init : static_cast<int>(z[static_cast<size_t>(e - d) * 64]);
+        e - d < first ? init
+                      : static_cast<int>(z[static_cast<size_t>(e - d) * 64]);
     v0 -= prev;
   }
   const int i0 = 2 * lane, i1 = 2 * lane + 1;
@@ -139,16 +153,21 @@ __device__ __forceinline__ void load_luts(int* lut, const int* dc_lut,
 }
 
 __global__ void __launch_bounds__(kThreads)
-count_kernel(const int16_t* __restrict__ z, int num_entries, int hv,
-             const int* __restrict__ init_dc, const int* __restrict__ dc_lut,
-             const int* __restrict__ ac_lut, int* __restrict__ entry_bits) {
+count_kernel(const int16_t* __restrict__ z, int num_entries, int epi,
+             int live_entries, int hv, const int* __restrict__ init_dc,
+             const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
+             int* __restrict__ entry_bits) {
   __shared__ int lut[kLutSize];
   load_luts(lut, dc_lut, ac_lut);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int e = blockIdx.x * kWarps + warp; e < num_entries;
        e += gridDim.x * kWarps) {
-    const SlotPair s = symbolize(z, e, hv, init_dc, lut, lane);
+    if (e >= live_entries) {  // warp-uniform
+      if (lane == 0) entry_bits[e] = 0;
+      continue;
+    }
+    const SlotPair s = symbolize(z, e, e / epi * epi, hv, init_dc, lut, lane);
     int n = s.len0 + s.len1;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(kFull, n, off);
@@ -228,6 +247,31 @@ scan_tile_sums_kernel(int* __restrict__ tile_sums, int num_tiles,
   if (threadIdx.x == 0) *total_bits = carry;
 }
 
+// Bit offset of entry e (e == num_entries: the total) in the whole scan.
+__device__ __forceinline__ int scan_offset(const int* __restrict__ entry_offsets,
+                                           const int* __restrict__ tile_offsets,
+                                           const int* __restrict__ total_bits,
+                                           int e, int num_entries) {
+  return e < num_entries ? entry_offsets[e] + tile_offsets[e / kScanTile]
+                         : *total_bits;
+}
+
+// One thread per interval: its true bit count.
+__global__ void interval_bits_kernel(const int* __restrict__ entry_offsets,
+                                     const int* __restrict__ tile_offsets,
+                                     const int* __restrict__ total_bits,
+                                     int num_entries, int epi,
+                                     int num_intervals,
+                                     int* __restrict__ interval_bits) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= num_intervals) return;
+  const int first = j * epi;
+  const int end = num_entries - first > epi ? first + epi : num_entries;
+  interval_bits[j] =
+      scan_offset(entry_offsets, tile_offsets, total_bits, end, num_entries) -
+      scan_offset(entry_offsets, tile_offsets, total_bits, first, num_entries);
+}
+
 __device__ __forceinline__ void put_bits(uint32_t* buf, int offset,
                                          uint32_t bits, int len) {
   if (len == 0) return;
@@ -242,9 +286,9 @@ __device__ __forceinline__ void put_bits(uint32_t* buf, int offset,
 }
 
 __global__ void __launch_bounds__(kThreads)
-write_kernel(const int16_t* __restrict__ z, int num_entries, int hv,
-             const int* __restrict__ init_dc, const int* __restrict__ dc_lut,
-             const int* __restrict__ ac_lut,
+write_kernel(const int16_t* __restrict__ z, int num_entries, int epi,
+             int live_entries, int hv, const int* __restrict__ init_dc,
+             const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
              const int* __restrict__ entry_offsets,
              const int* __restrict__ tile_offsets, uint32_t* __restrict__ out,
              int num_words) {
@@ -254,9 +298,11 @@ write_kernel(const int16_t* __restrict__ z, int num_entries, int hv,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   uint32_t* wbuf = buf[warp];
-  for (int e = blockIdx.x * kWarps + warp; e < num_entries;
+  for (int e = blockIdx.x * kWarps + warp; e < live_entries;
        e += gridDim.x * kWarps) {
-    const SlotPair s = symbolize(z, e, hv, init_dc, lut, lane);
+    const int interval = e / epi;
+    const int first = interval * epi;
+    const SlotPair s = symbolize(z, e, first, hv, init_dc, lut, lane);
     const int n = s.len0 + s.len1;
     int incl = n;
 #pragma unroll
@@ -266,7 +312,9 @@ write_kernel(const int16_t* __restrict__ z, int num_entries, int hv,
     }
     const int entry_len = __shfl_sync(kFull, incl, 31);
     if (entry_len == 0) continue;  // warp-uniform
-    const int offset = entry_offsets[e] + tile_offsets[e / kScanTile];
+    const int offset = entry_offsets[e] + tile_offsets[e / kScanTile] -
+                       entry_offsets[first] - tile_offsets[first / kScanTile];
+    uint32_t* row = out + static_cast<size_t>(interval) * num_words;
     const int phase = offset & 31;
     const int first_word = offset >> 5;
     const int words = (phase + entry_len + 31) >> 5;
@@ -278,12 +326,12 @@ write_kernel(const int16_t* __restrict__ z, int num_entries, int hv,
     __syncwarp();
     for (int w = lane; w < words; w += 32) {
       const int gw = first_word + w;
-      if (gw >= num_words) break;
+      if (gw >= num_words) break;  // the row's capacity: dropped
       const uint32_t val = __byte_perm(wbuf[w], 0, 0x0123);  // big-endian
       if (w == 0 || w == words - 1) {
-        atomicOr(&out[gw], val);  // shared with the neighbouring entry
+        atomicOr(&row[gw], val);  // shared with the neighbouring entry
       } else {
-        out[gw] = val;  // owned by this entry alone
+        row[gw] = val;  // owned by this entry alone
       }
     }
     __syncwarp();  // wbuf is reused by the next entry
@@ -303,27 +351,36 @@ int grid_for(int warps_of_work) {
 
 }  // namespace
 
-// z: (num_entries, 64) int16 scan entries, raw DC in slot 0, 4-byte aligned.
-// init_dc: 3 int32 DC predictors (Y, Cb, Cr). dc_lut, ac_lut: (2, 256) int32
-// packed tables (row 0 luma, row 1 chroma). Scratch: entry_bits
-// (num_entries int32), tile_sums (ceil(num_entries / 4096) int32). Outputs:
-// total_bits (1 int32), out (num_words u32, byte-swapped big-endian words).
-// Returns the first cudaError_t met (0 on success).
-extern "C" int jt_entropy_encode(const int16_t* z, int num_entries, int hv,
-                                 const int* init_dc, const int* dc_lut,
-                                 const int* ac_lut, int* entry_bits,
-                                 int* tile_sums, int* total_bits,
+// z: (num_entries, 64) int16 scan entries, raw DC in slot 0, 4-byte aligned,
+// cut into ceil(num_entries / epi) intervals of epi entries (a multiple of
+// the MCU's hv + 2 blocks); entries at index >= live_entries (clamped to
+// [0, num_entries] by the caller) emit nothing. init_dc: 3 int32 DC
+// predictors (Y, Cb, Cr) of every interval's first entries. dc_lut, ac_lut:
+// (2, 256) int32 packed tables (row 0 luma, row 1 chroma). Scratch:
+// entry_bits (num_entries int32), tile_sums (ceil(num_entries / 4096)
+// int32), total_bits (1 int32). Outputs: interval_bits (one int32 per
+// interval), out (num_words u32 per interval, byte-swapped big-endian
+// words). Returns the first cudaError_t met (0 on success).
+extern "C" int jt_entropy_encode(const int16_t* z, int num_entries, int epi,
+                                 int live_entries, int hv, const int* init_dc,
+                                 const int* dc_lut, const int* ac_lut,
+                                 int* entry_bits, int* tile_sums,
+                                 int* total_bits, int* interval_bits,
                                  uint32_t* out, int num_words, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(uint32_t) * num_words, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_entries == 0) {
-    return static_cast<int>(cudaMemsetAsync(total_bits, 0, sizeof(int), st));
+  if (num_entries <= 0 || epi <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int num_intervals = (num_entries + epi - 1) / epi;
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, sizeof(uint32_t) * num_words * static_cast<size_t>(num_intervals),
+      st);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = grid_for(num_entries);
   const int num_tiles = (num_entries + kScanTile - 1) / kScanTile;
-  count_kernel<<<grid, kThreads, 0, st>>>(z, num_entries, hv, init_dc, dc_lut,
-                                          ac_lut, entry_bits);
+  count_kernel<<<grid, kThreads, 0, st>>>(z, num_entries, epi, live_entries,
+                                          hv, init_dc, dc_lut, ac_lut,
+                                          entry_bits);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   scan_tiles_kernel<<<num_tiles, kScanThreads, 0, st>>>(entry_bits,
                                                         num_entries, tile_sums);
@@ -331,8 +388,13 @@ extern "C" int jt_entropy_encode(const int16_t* z, int num_entries, int hv,
   scan_tile_sums_kernel<<<1, kScanThreads, 0, st>>>(tile_sums, num_tiles,
                                                     total_bits);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  write_kernel<<<grid, kThreads, 0, st>>>(z, num_entries, hv, init_dc, dc_lut,
-                                          ac_lut, entry_bits, tile_sums, out,
-                                          num_words);
+  interval_bits_kernel<<<(num_intervals + 255) / 256, 256, 0, st>>>(
+      entry_bits, tile_sums, total_bits, num_entries, epi, num_intervals,
+      interval_bits);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if (live_entries == 0) return 0;
+  write_kernel<<<grid_for(live_entries), kThreads, 0, st>>>(
+      z, num_entries, epi, live_entries, hv, init_dc, dc_lut, ac_lut,
+      entry_bits, tile_sums, out, num_words);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,20 +1,22 @@
 """Run-length + Huffman entropy coding and bit packing (the plain path).
 
-Port of the JAX package's XLA symbolizer and packer
-(jpeg_encoder_tpu/ops/entropy.py:53-112, :316-433, :882-919). The
-reference walks blocks through three running DC predictors and one
-append-only bit vector (entropy_coding.rs:16-124); here every slot of every
-block knows on its own what it emits:
+Port of the JAX package's XLA symbolizer, packers and statistics pass
+(jpeg_encoder_tpu/ops/entropy.py:309-549, :759-919). The reference walks
+blocks through three running DC predictors and one append-only bit vector
+(entropy_coding.rs:16-124); here every slot of every block knows on its
+own what it emits:
 
 1. scan entries: the coefficient blocks gathered into interleaved MCU order
    (scan_layout / marshal_scan_inputs), raw DC in slot 0;
-2. DC differences: a shifted subtraction along each component's chain;
+2. DC differences: each entry minus the previous entry of its component,
+   found at a static scan distance, with the predictor reset to 0 at every
+   restart interval's first entry;
 3. run lengths: a cummax over the zigzag axis, with a ZRL on the 16th,
    32nd and 48th zero of a run that ends in a nonzero;
 4. Huffman codes: a lookup in packed `length << 20 | code` tables;
-5. packing: an exclusive cumsum of slot lengths gives each slot's absolute
-   bit offset, and a scatter-add writes the MSB-first codes into 32-bit
-   words (the bit ranges are disjoint, so add equals or).
+5. packing: an exclusive cumsum of slot lengths gives each slot's bit
+   offset in its interval, and a scatter-add writes the MSB-first codes
+   into 32-bit words (the bit ranges are disjoint, so add equals or).
 
 Slot layout per entry, as in the fused TPU kernel: slot 0 is the DC, slot
 i in 1..63 is zigzag position i's emission (its nonzero coefficient, a ZRL,
@@ -22,8 +24,14 @@ or nothing), and the EOB takes slot 63 when that coefficient is zero. A
 zero at position 63 emits nothing else (it ends no run), so the EOB there
 keeps the reference's emission order.
 
+A restart-framed scan (T.81 E.2.4) is the same entry stream cut every
+`entries_per_interval` entries (a whole number of MCUs): each interval
+packs into its own row from bit 0, and its DC predictors start at 0.
+`live_entries` makes the entries at index >= live_entries emit nothing.
+
 Bit arithmetic is int64 throughout: torch's uint32 shifts are thin. This
-is the CPU path and the spec for the CUDA kernel (kernels/entropy.py).
+is the CPU path and the spec for the CUDA kernels (kernels/entropy.py,
+kernels/pack.py).
 """
 
 from __future__ import annotations
@@ -42,6 +50,12 @@ from jpeg_encoder_torch import constants
 # <= 11 + 11, 63 AC slots <= 16 + 10, the EOB <= 16; the JAX package's
 # round 65 * 27, kept so that both packages size the same buffers.
 WORST_CASE_BITS_PER_ENTRY = 65 * 27
+
+# Words of one entry's private buffer in the assemble tier (pack_level1):
+# 1755 bits span words 0..54, plus one spill word.
+ENTRY_WORDS = 56
+
+_TRASH = 1024  # symbol id of a slot that emits nothing
 
 
 def worst_case_capacity_bytes(geom: FrameGeometry) -> int:
@@ -111,6 +125,13 @@ def marshal_scan_inputs(
     return allc.index_select(0, _entry_rows(geom, allc.device))
 
 
+def entries_per_interval(geom: FrameGeometry, restart_mcus: int) -> int:
+    """Scan entries of one restart interval, clamped to the image: a
+    restart interval past the MCU count gives one interval (and no RSTn
+    markers), never a padded one."""
+    return min(restart_mcus, geom.num_mcus) * geom.blocks_per_mcu
+
+
 # --------------------------------------------------------------------------
 # Symbolization
 # --------------------------------------------------------------------------
@@ -125,6 +146,13 @@ def device_luts(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     )
 
 
+def pack_lut(spec) -> np.ndarray:
+    """One tables.HuffmanSpec -> 256-entry `length << 20 | code` LUT row."""
+    return (spec.length_lut.astype(np.int32) << 20) | (
+        spec.code_lut.astype(np.int32)
+    )
+
+
 def bit_length(values: torch.Tensor) -> torch.Tensor:
     """Magnitude category of non-negative integers below 2^24.
 
@@ -134,43 +162,61 @@ def bit_length(values: torch.Tensor) -> torch.Tensor:
     return torch.frexp(values.to(torch.float32))[1].to(values.dtype)
 
 
-def _seq_diff(seq: torch.Tensor, init: torch.Tensor) -> torch.Tensor:
-    """diff[k] = seq[k] - seq[k-1], with `init` as the predictor of k=0."""
-    return seq - torch.cat([init.reshape(1), seq[:-1]])
-
-
 def dc_differences(
-    dc: torch.Tensor, hv: int, init_dc: torch.Tensor | None = None
+    dc: torch.Tensor,
+    hv: int,
+    init_dc: torch.Tensor | None = None,
+    entries_per_interval: int | None = None,
 ) -> torch.Tensor:
     """(E,) raw DCs in scan order -> (E,) differences along each
-    component's predictor chain (luma, Cb, Cr), seeded from init_dc."""
-    d = dc.reshape(-1, hv + 2)
+    component's predictor chain (luma, Cb, Cr).
+
+    The previous DC of a component lies at a static distance: 1 for a
+    luma block after another of its MCU, bpm - hv + 1 for an MCU's first
+    luma block, bpm for chroma. A chain's first entry in its interval
+    (the whole scan by default) takes init_dc's predictor; with several
+    intervals that is 0, the reset T.81 E.2.4 defines at every restart
+    marker (jpeg_encoder_tpu.ops.entropy.interval_dc_diffs, vmapped over
+    the intervals).
+    """
+    num_entries = dc.shape[0]
+    bpm = hv + 2
+    epi = entries_per_interval or num_entries
+    e = torch.arange(num_entries, device=dc.device)
+    pos = e % bpm
+    component = torch.clamp(pos - hv + 1, min=0)  # 0 luma, 1 Cb, 2 Cr
+    dist = torch.where(
+        pos >= hv, bpm, torch.where(pos == 0, bpm - hv + 1, 1)
+    )
+    prev = e - dist
     init = (
         torch.zeros(3, dtype=dc.dtype, device=dc.device) if init_dc is None
         else init_dc.to(device=dc.device, dtype=dc.dtype)
     )
-    dy = _seq_diff(d[:, :hv].reshape(-1), init[0])
-    dcb = _seq_diff(d[:, hv], init[1])
-    dcr = _seq_diff(d[:, hv + 1], init[2])
-    return torch.cat(
-        [dy.reshape(-1, hv), dcb[:, None], dcr[:, None]], dim=1
-    ).reshape(-1)
+    pred = torch.where(
+        prev >= e // epi * epi, dc[prev.clamp(min=0)], init[component]
+    )
+    return dc - pred
 
 
-def symbolize(
+def slot_symbols(
     z: torch.Tensor,
     hv: int,
     init_dc: torch.Tensor | None = None,
-    luts: tuple[torch.Tensor, torch.Tensor] | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """(E, 64) zigzag scan entries, raw DC in slot 0 -> (slot_bits,
-    slot_lens), both (E, 64) int64, in stream order."""
+    live_entries: int | None = None,
+    entries_per_interval: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(E, 64) zigzag scan entries, raw DC in slot 0 -> (ids, ampl, abl),
+    each (E, 64) int64, in stream order.
+
+    ids indexes the 1024 symbols of [DC luma | DC chroma | AC luma | AC
+    chroma] (256 each); a slot that emits nothing (and every slot of a
+    dead entry) has id 1024. ampl/abl are the amplitude bits appended
+    after the code and their count (0 for ZRL and EOB).
+    """
     device = z.device
     z = z.to(torch.int64)
     num_entries = z.shape[0]
-    dc_lut, ac_lut = luts if luts is not None else device_luts(device)
-    # Rows 0/1: DC luma/chroma; rows 2/3: AC luma/chroma.
-    lut4 = torch.cat([dc_lut, ac_lut]).to(torch.int64)
     chroma = (
         torch.arange(num_entries, device=device) % (hv + 2) >= hv
     ).to(torch.int64)[:, None]
@@ -184,26 +230,74 @@ def symbolize(
     run_dist = pos - run_base  # distance to the previous nonzero (>= 1)
 
     # Slot 0 codes the DC difference with the same amplitude formulas.
-    diff = dc_differences(z[:, 0], hv, init_dc)
+    diff = dc_differences(z[:, 0], hv, init_dc, entries_per_interval)
     v = torch.cat([diff[:, None], z[:, 1:]], dim=1)
     bl = bit_length(v.abs())
     ampl = torch.where(v < 0, v + (1 << bl) - 1, v) & ((1 << bl) - 1)
     sym = torch.where(pos == 0, bl, (((run_dist - 1) & 15) << 4) | bl)
-    row = chroma + torch.where(pos == 0, 0, 2)
-    cl = lut4[row, sym.clamp(max=255)]
-    coded_bits = ((cl & 0xFFFFF) << bl) | ampl
-    coded_len = (cl >> 20) + bl
-
+    emit = (pos == 0) | nonzero
     zrl = (z == 0) & (pos > 0) & (pos <= last_nz) & (run_dist % 16 == 0)
     eob = (pos == 63) & (z[:, 63:] == 0)
-    zrl_cl = lut4[2 + chroma, 0xF0]
-    eob_cl = lut4[2 + chroma, 0x00]
-    emit = (pos == 0) | nonzero
-    zero = torch.zeros_like(cl)
-    spec_cl = torch.where(zrl, zrl_cl, torch.where(eob, eob_cl, zero))
-    slot_bits = torch.where(emit, coded_bits, spec_cl & 0xFFFFF)
-    slot_lens = torch.where(emit, coded_len, spec_cl >> 20)
+    ac_base = (2 + chroma) * 256
+    ids = torch.where(
+        emit,
+        torch.where(pos == 0, chroma * 256, ac_base) + sym.clamp(max=255),
+        torch.where(zrl, ac_base + 0xF0,
+                    torch.where(eob, ac_base, _TRASH)),
+    )
+    abl = torch.where(emit, bl, 0)
+    if live_entries is not None:
+        live = torch.arange(num_entries, device=device) < live_entries
+        ids = torch.where(live[:, None], ids, _TRASH)
+        abl = torch.where(live[:, None], abl, 0)
+    return ids, torch.where(abl > 0, ampl, 0), abl
+
+
+def symbolize(
+    z: torch.Tensor,
+    hv: int,
+    init_dc: torch.Tensor | None = None,
+    luts: tuple[torch.Tensor, torch.Tensor] | None = None,
+    live_entries: int | None = None,
+    entries_per_interval: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E, 64) zigzag scan entries, raw DC in slot 0 -> (slot_bits,
+    slot_lens), both (E, 64) int64, in stream order."""
+    ids, ampl, abl = slot_symbols(
+        z, hv, init_dc, live_entries, entries_per_interval
+    )
+    dc_lut, ac_lut = luts if luts is not None else device_luts(z.device)
+    zero = torch.zeros(1, dtype=torch.int64, device=z.device)
+    lut = torch.cat([dc_lut.reshape(-1), ac_lut.reshape(-1)]).to(torch.int64)
+    cl = torch.cat([lut, zero])[ids]
+    slot_bits = ((cl & 0xFFFFF) << abl) | ampl
+    slot_lens = (cl >> 20) + abl
     return slot_bits, slot_lens
+
+
+def symbol_histograms(
+    z: torch.Tensor,
+    geom: FrameGeometry,
+    restart_mcus: int | None = None,
+    init_dc: torch.Tensor | None = None,
+    live_entries: int | None = None,
+) -> torch.Tensor:
+    """Huffman symbol counts of the scan: (4, 256) int64, rows Y-DC, C-DC,
+    Y-AC, C-AC (jpeg_encoder_tpu.ops.entropy.symbol_histograms).
+
+    The statistics pass of the optimized-Huffman encode. restart_mcus must
+    be the encode pass's: interval DC resets change the DC categories, and
+    a category the tables do not cover has no code (a corrupt stream).
+    One bincount over the slots' symbol ids; silent slots and dead entries
+    land in a 1025th bin that is dropped.
+    """
+    epi = (None if restart_mcus is None
+           else entries_per_interval(geom, restart_mcus))
+    ids, _, _ = slot_symbols(
+        z, geom.h_factor * geom.v_factor, init_dc, live_entries, epi
+    )
+    hist = torch.bincount(ids.reshape(-1), minlength=_TRASH + 1)
+    return hist[:_TRASH].reshape(4, 256)
 
 
 # --------------------------------------------------------------------------
@@ -211,40 +305,80 @@ def symbolize(
 # --------------------------------------------------------------------------
 
 def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
-    """u32 word values (any integer dtype) -> big-endian uint8 stream."""
+    """u32 word values (any integer dtype) along the last axis -> the
+    big-endian uint8 stream, one row per leading index."""
     shifts = torch.tensor([24, 16, 8, 0], device=words.device)
-    w = words.to(torch.int64)[:, None]
-    return ((w >> shifts) & 0xFF).to(torch.uint8).reshape(-1)
+    w = words.to(torch.int64)[..., None]
+    return ((w >> shifts) & 0xFF).to(torch.uint8).reshape(
+        *words.shape[:-1], -1
+    )
 
 
-def pack_bits(
-    slot_bits: torch.Tensor, slot_lens: torch.Tensor, capacity_bytes: int
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Scatter-add of MSB-first slot codes at their exclusive-cumsum offsets.
+def as_u32_int32(values: torch.Tensor) -> torch.Tensor:
+    """int64 u32 values in [0, 2^32) -> int32 tensors with the same bits."""
+    return torch.where(values >= 1 << 31, values - (1 << 32), values).to(
+        torch.int32
+    )
 
-    Returns (bytes (capacity_bytes,) uint8, total_bits int32 scalar). Words
-    at or past capacity_bytes / 4 are dropped; total_bits is still the true
-    length, which is how callers detect an overflow.
-    """
-    bits = slot_bits.reshape(-1)
-    lens = slot_lens.reshape(-1)
-    offsets = torch.cumsum(lens, 0) - lens
-    total_bits = (offsets[-1] + lens[-1]).to(torch.int32)
+
+def _split_slot_words(
+    bits: torch.Tensor, lens: torch.Tensor, offsets: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MSB-first alignment of each code at its bit offset: (word, hi,
+    spill, lo); hi goes to `word`, lo to word + 1 where spill."""
     word = offsets >> 5
-    end = (offsets & 31) + lens  # in [0, 58]
+    end = (offsets & 31) + lens  # in [0, 63]
     spill = end > 32
     hi = torch.where(spill, bits >> (end - 32).clamp(min=0),
                      bits << (32 - end).clamp(min=0))
     lo = (bits << torch.where(spill, 64 - end, 0)) & 0xFFFFFFFF
-    lo = torch.where(spill, lo, 0)
-    num_words = capacity_bytes // 4
-    words = torch.zeros(num_words + 1, dtype=torch.int64, device=bits.device)
-    trash = torch.full_like(word, num_words)
-    words.index_add_(0, torch.where(word < num_words, word, trash), hi)
-    words.index_add_(
-        0, torch.where(spill & (word + 1 < num_words), word + 1, trash), lo
+    return word, hi, spill, torch.where(spill, lo, 0)
+
+
+def pack_bits(
+    slot_bits: torch.Tensor,
+    slot_lens: torch.Tensor,
+    capacity_bytes: int,
+    entries_per_interval: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter-add of MSB-first slot codes at their exclusive-cumsum
+    offsets, one row per interval of entries_per_interval entries (the
+    last may be short).
+
+    Returns (bytes (n_int, capacity_bytes) uint8, bits (n_int,) int32).
+    Words at or past capacity_bytes / 4 of a row are dropped, never
+    spilled into the next row; bits is still each row's true length,
+    which is how callers detect an overflow.
+    """
+    num_entries, slots = slot_lens.shape
+    epi = entries_per_interval or num_entries
+    n_int = -(-num_entries // epi)
+    device = slot_lens.device
+    bits = slot_bits.reshape(-1)
+    lens = slot_lens.reshape(-1)
+    ends = torch.cumsum(lens, 0)
+    offsets = ends - lens
+    first = torch.arange(n_int, device=device) * (epi * slots)
+    start = offsets[first]
+    interval_bits = torch.cat([start[1:], ends[-1:]]) - start
+    interval = torch.arange(lens.shape[0], device=device) // (epi * slots)
+    word, hi, spill, lo = _split_slot_words(
+        bits, lens, offsets - start[interval]
     )
-    return words_to_bytes(words[:num_words]), total_bits
+    num_words = capacity_bytes // 4
+    row = interval * num_words
+    trash = n_int * num_words
+    words = torch.zeros(trash + 1, dtype=torch.int64, device=device)
+    words.index_add_(0, torch.where(word < num_words, row + word, trash), hi)
+    words.index_add_(
+        0,
+        torch.where(spill & (word + 1 < num_words), row + word + 1, trash),
+        lo,
+    )
+    return (
+        words_to_bytes(words[:trash].reshape(n_int, num_words)),
+        interval_bits.to(torch.int32),
+    )
 
 
 def encode_entries(
@@ -253,8 +387,13 @@ def encode_entries(
     capacity_bytes: int,
     init_dc: torch.Tensor | None = None,
     luts: tuple[torch.Tensor, torch.Tensor] | None = None,
+    *,
+    live_entries: int | None = None,
+    entries_per_interval: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(E, 64) scan entries -> (bytes (capacity_bytes,), total_bits).
+    """(E, 64) scan entries -> (bytes (capacity_bytes,), total_bits), or,
+    with entries_per_interval, (bytes (n_int, capacity_bytes), bits
+    (n_int,)) with one independently coded row per restart interval.
 
     The plain version of the entropy kernel: same operands, same result.
     """
@@ -263,8 +402,84 @@ def encode_entries(
             f"capacity_bytes must be a multiple of 4, got {capacity_bytes}"
         )
     hv = geom.h_factor * geom.v_factor
-    slot_bits, slot_lens = symbolize(z, hv, init_dc, luts)
-    return pack_bits(slot_bits, slot_lens, capacity_bytes)
+    slot_bits, slot_lens = symbolize(
+        z, hv, init_dc, luts, live_entries, entries_per_interval
+    )
+    data, bits = pack_bits(
+        slot_bits, slot_lens, capacity_bytes, entries_per_interval
+    )
+    if entries_per_interval is None:
+        return data[0], bits[0]
+    return data, bits
+
+
+def pack_level1(
+    slot_bits: torch.Tensor, slot_lens: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(E, S) slot codes -> ((E, ENTRY_WORDS) int32 words holding u32
+    bits, (E,) int64 bit counts): every entry's slots packed MSB-first
+    into a private buffer from bit 0 (jpeg_encoder_tpu.ops.entropy.
+    _pack_level1). Words past ENTRY_WORDS are dropped, as there: only
+    coefficients beyond the scan's 10-bit range can reach them."""
+    num_entries = slot_lens.shape[0]
+    ends = torch.cumsum(slot_lens, dim=1)
+    word, hi, spill, lo = _split_slot_words(slot_bits, slot_lens,
+                                            ends - slot_lens)
+    width = ENTRY_WORDS + 1  # the last column is trash
+    base = torch.arange(num_entries, device=slot_lens.device)[:, None] * width
+    trash = base + ENTRY_WORDS
+    words = torch.zeros(num_entries * width, dtype=torch.int64,
+                        device=slot_lens.device)
+    words.index_add_(
+        0, torch.where(word < ENTRY_WORDS, base + word, trash).reshape(-1),
+        hi.reshape(-1),
+    )
+    words.index_add_(
+        0,
+        torch.where(spill & (word + 1 < ENTRY_WORDS), base + word + 1,
+                    trash).reshape(-1),
+        lo.reshape(-1),
+    )
+    words = words.reshape(num_entries, width)[:, :ENTRY_WORDS]
+    return as_u32_int32(words), ends[:, -1]
+
+
+def assemble_bitstream(
+    entry_words: torch.Tensor, offsets: torch.Tensor, capacity_bytes: int
+) -> torch.Tensor:
+    """OR every entry's words into its row's stream at its bit offset.
+
+    entry_words: (B, E, EW) int32 holding u32 words (pack_level1's);
+    offsets: (B, E) int32 bit offsets within each row; the leading axis is
+    the restart intervals. Returns (B, capacity_bytes // 4) int32 words.
+    The plain version of the pack kernel (kernels/pack.py). Entry e's word
+    k lands at bit offsets[e] + 32 k; words at or past the row's capacity
+    are dropped (the TPU kernel clamps such entries onto the buffer's tail
+    instead: the two differ only on an overflow, whose payload the caller
+    discards). The entries' bit ranges are disjoint, as offsets from an
+    exclusive cumsum of their bit counts are, so the add below is the OR.
+    """
+    rows, num_entries, ew = entry_words.shape
+    device = entry_words.device
+    num_words = capacity_bytes // 4
+    w = entry_words.to(torch.int64) & 0xFFFFFFFF
+    off = offsets.to(torch.int64)[..., None]
+    s = off & 31
+    word = (off >> 5) + torch.arange(ew, device=device)
+    hi = w >> s
+    lo = torch.where(s > 0, (w << (32 - s)) & 0xFFFFFFFF, 0)
+    row = torch.arange(rows, device=device)[:, None, None] * num_words
+    trash = rows * num_words
+    out = torch.zeros(trash + 1, dtype=torch.int64, device=device)
+    out.index_add_(
+        0, torch.where(word < num_words, row + word, trash).reshape(-1),
+        hi.reshape(-1),
+    )
+    out.index_add_(
+        0, torch.where(word + 1 < num_words, row + word + 1, trash).reshape(-1),
+        lo.reshape(-1),
+    )
+    return as_u32_int32(out[:trash].reshape(rows, num_words))
 
 
 def coefficient_ranges(

@@ -1,9 +1,10 @@
 """Port entropy coder vs the JAX package and the oracle.
 
 Scan layout, marshal, DC chains, symbolization and packing of the plain
-path (ops/entropy.py) and of the entropy kernel's wrapper on CPU tensors,
-held exactly against jpeg_encoder_tpu's XLA packer, its fused Pallas
-kernel (interpret mode, one small geometry) and the oracle's bit writer.
+path (ops/entropy.py) and of the entropy and pack kernels' wrappers on CPU
+tensors, held exactly against jpeg_encoder_tpu's XLA packer, its fused
+Pallas kernel and its assembly kernel (interpret mode, small geometries)
+and the oracle's bit writer.
 """
 
 import jax.numpy as jnp
@@ -13,8 +14,11 @@ import torch
 
 from jpeg_encoder_tpu import oracle, tables
 from jpeg_encoder_tpu.config import EncoderConfig
+from jpeg_encoder_tpu.kernels import pack_pallas
 from jpeg_encoder_tpu.ops import entropy as jax_entropy
+from jpeg_encoder_torch import scan
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+from jpeg_encoder_torch.kernels import pack as pack_kernel
 from jpeg_encoder_torch.ops import entropy
 
 RATIOS = [(4, 4, 4), (4, 2, 2), (4, 2, 0)]
@@ -212,3 +216,120 @@ def test_entropy_wrapper_rejects_bad_operands():
     huge = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(16384, 16384)
     with pytest.raises(ValueError, match="int32"):
         entropy_kernel.encode_entries(z, huge, 1024)
+
+
+def _random_slots(rng, num_entries, slots=65, max_len=27):
+    """(E, S) codes of random lengths in [0, max_len], MSB-first values
+    below 2^len, as int64; mostly short, like real scans."""
+    lens = np.where(rng.random((num_entries, slots)) < 0.7, 0,
+                    rng.integers(1, max_len + 1, (num_entries, slots)))
+    bits = rng.integers(0, 1 << 30, (num_entries, slots)) & ((1 << lens) - 1)
+    return bits.astype(np.int64), lens.astype(np.int64)
+
+
+def test_pack_level1_matches_jax(rng):
+    """Per-entry private buffers (the assemble tier's first level) against
+    jpeg_encoder_tpu.ops.entropy._pack_level1, 65 slots as there."""
+    bits, lens = _random_slots(rng, 200)
+    lens[0] = 27  # the widest entry: 65 * 27 bits, words 0..54
+    bits[0] = (1 << 27) - 1
+    words, entry_bits = entropy.pack_level1(torch.from_numpy(bits),
+                                            torch.from_numpy(lens))
+    want_words, want_bits = jax_entropy._pack_level1(
+        jnp.asarray(bits.astype(np.uint32)), jnp.asarray(lens.astype(np.int32))
+    )
+    assert words.dtype == torch.int32
+    assert words.shape == (200, entropy.ENTRY_WORDS)
+    assert np.array_equal(words.numpy().view(np.uint32), np.asarray(want_words))
+    assert np.array_equal(entry_bits.numpy(), np.asarray(want_bits))
+
+
+def _level1(rng, geom, cap_entries=None):
+    coeffs = _coeffs(rng, geom)
+    z = entropy.marshal_scan_inputs(*(torch.from_numpy(c) for c in coeffs), geom)
+    slot_bits, slot_lens = entropy.symbolize(z, geom.h_factor * geom.v_factor)
+    words, entry_bits = entropy.pack_level1(slot_bits, slot_lens)
+    offsets = torch.cumsum(entry_bits, 0) - entry_bits
+    return words, offsets.to(torch.int32), int(entry_bits.sum()), slot_bits, slot_lens
+
+
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_assemble_bitstream_matches_pallas_interpret(ratio, rng):
+    """The pack kernel's wrapper on CPU tensors (its plain version) against
+    the TPU kernel it replaces, assemble_bitstream_pallas in interpret
+    mode, where the stream fits; and against the scatter packer."""
+    geom = EncoderConfig(subsampling_ratio=ratio).geometry(48, 32)
+    words, offsets, total, slot_bits, slot_lens = _level1(rng, geom)
+    cap = 1 << 13
+    assert total <= 8 * cap
+    before = pack_kernel.PACK.launches
+    got = pack_kernel.assemble_bitstream(words[None], offsets[None], cap)
+    assert pack_kernel.PACK.launches == before  # the CPU path launches nothing
+    want = pack_pallas.assemble_bitstream_pallas(
+        jnp.asarray(words.numpy().view(np.uint32)), jnp.asarray(offsets.numpy()),
+        cap, interpret=True,
+    )
+    assert got.shape == (1, cap // 4)
+    assert np.array_equal(got[0].numpy().view(np.uint32), np.asarray(want))
+    stream, bits = entropy.pack_bits(slot_bits, slot_lens, cap)
+    assert int(bits[0]) == total
+    assert torch.equal(entropy.words_to_bytes(got), stream)
+
+
+def test_assemble_bitstream_rows_and_overflow(rng):
+    """Rows are independent streams; a row's words at or past capacity are
+    dropped (never spilled into the next row), leaving the exact prefix."""
+    geom = EncoderConfig(subsampling_ratio=(4, 2, 2)).geometry(40, 24)
+    rows = [_level1(rng, geom) for _ in range(3)]
+    words = torch.stack([r[0] for r in rows])
+    offsets = torch.stack([r[1] for r in rows])
+    full = pack_kernel.assemble_bitstream(words, offsets, 1 << 13)
+    for cap in (4, 64, 1000):
+        assert all(r[2] > 8 * cap for r in rows)
+        got = pack_kernel.assemble_bitstream(words, offsets, cap)
+        assert torch.equal(got, full[:, : cap // 4])
+
+
+def test_assemble_packer_matches_jax_pallas_interpret(rng):
+    """As test_entropy.py::test_pallas_packer_matches_xla: the assemble
+    tier (plain symbolization, then the pack kernel's wrapper) against the
+    JAX package's packer="pallas_interpret"."""
+    geom = EncoderConfig(subsampling_ratio=(4, 2, 0)).geometry(48, 32)
+    coeffs = _coeffs(rng, geom, sparsity=0.9, amp=80)
+    cap = 1 << 14
+    z = entropy.marshal_scan_inputs(*(torch.from_numpy(c) for c in coeffs),
+                                    geom)
+    got, bits = scan.encode_entries(z, geom, cap, packer="assemble")
+    want, want_bits = jax_entropy.encode_scan(
+        *(jnp.asarray(c) for c in coeffs), geom, cap,
+        coeffs_zigzagged=True, packer="pallas_interpret",
+    )
+    assert int(bits) == int(want_bits)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_pack_wrapper_rejects_bad_operands():
+    words = torch.zeros((1, 6, entropy.ENTRY_WORDS), dtype=torch.int32)
+    offsets = torch.zeros((1, 6), dtype=torch.int32)
+    with pytest.raises(ValueError, match="capacity"):
+        pack_kernel.assemble_bitstream(words, offsets, 1022)
+    with pytest.raises(ValueError, match="entry_words"):
+        pack_kernel.assemble_bitstream(words.to(torch.int64), offsets, 1024)
+    with pytest.raises(ValueError, match="entry_words"):
+        pack_kernel.assemble_bitstream(words[0], offsets, 1024)
+    with pytest.raises(ValueError, match="offsets"):
+        pack_kernel.assemble_bitstream(words, offsets[:, :5], 1024)
+    with pytest.raises(ValueError, match="packer"):
+        scan.encode_entries(torch.zeros((6, 64), dtype=torch.int16),
+                            EncoderConfig().geometry(16, 16), 64,
+                            packer="pallas")
+
+
+def test_entropy_wrapper_rejects_empty_scan():
+    """An empty z is refused before it reaches the kernel (whose interval
+    count would divide by it)."""
+    geom = EncoderConfig().geometry(16, 16)
+    z = torch.zeros((0, 64), dtype=torch.int16)
+    for epi in (None, 6):
+        with pytest.raises(ValueError, match="no entries"):
+            entropy_kernel.encode_entries(z, geom, 64, entries_per_interval=epi)

@@ -10,8 +10,11 @@ on the card they run with
 They build csrc/*.cu, launch each kernel at small and at 1080p shapes and
 require exact equality with the plain version run on CPU tensors, except
 K2 (--fast-dct), which is held to max |diff| 1 at mismatch rates below
-1e-3 against its plain version and 5e-4 against the exact K1. The
-unmarked tests run everywhere and pin the build's behaviour.
+1e-3 against its plain version and 5e-4 against the exact K1: K4 also over
+restart intervals, with live_entries and with one-symbol optimal tables,
+and K5 over one row and many; then restart and optimized encodes on the
+card against the CPU path. The unmarked tests run everywhere and pin the
+build's behaviour.
 """
 
 import os
@@ -23,10 +26,11 @@ import torch
 from jpeg_encoder_tpu import tables
 from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_tpu.utils import corpus
-from jpeg_encoder_torch import pipeline
+from jpeg_encoder_torch import pipeline, scan
 from jpeg_encoder_torch.kernels import _build
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+from jpeg_encoder_torch.kernels import pack as pack_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,10 +91,10 @@ def test_build_runs_one_nvcc_per_source(monkeypatch, tmp_path):
 
 
 def test_every_kernel_has_its_source():
-    """The four kernels are the four csrc sources, each replacing a Pallas
+    """The five kernels are the five csrc sources, each replacing a Pallas
     kernel at a file:line that holds a pallas_call's entry point."""
     kernels = (dct_kernel.REALDCT, dct_kernel.FASTDCT, dct_kernel.BINDCT,
-               entropy_kernel.ENTROPY)
+               entropy_kernel.ENTROPY, pack_kernel.PACK)
     assert sorted(k.name for k in kernels) == _build.names()
     for k in kernels:
         assert k.source == f"jpeg_encoder_torch/csrc/{k.name}.cu"
@@ -217,5 +221,143 @@ def test_bindct_encode_on_card_matches_cpu(cuda, ratio, size, descale):
                            dct_algorithm=DctAlgorithm.BIN_DCT,
                            bin_dct_descale=descale)
     got = pipeline.encode_array(rgb, config, device=cuda)
+    want = pipeline.encode_array(rgb, config, device="cpu")
+    assert got.file_bytes == want.file_bytes
+
+
+def _corpus_entries(config, cuda, size=(1920, 1080)):
+    """Scan entries of corpus content, coded on the card: (z on CPU, geom)."""
+    width, height = size
+    rgb = corpus.foliage(height, width)
+    _, coeffs = pipeline.encode_array(rgb, config, device=cuda,
+                                      return_coeffs=True)
+    geom = config.geometry(width, height)
+    zz = [torch.from_numpy(c[:, tables.ZIGZAG_ORDER].copy()) for c in coeffs]
+    return entropy_ops.marshal_scan_inputs(*zz, geom), geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [1, 7, 120, 10000])
+@pytest.mark.parametrize("ratio", [(4, 2, 0), (4, 2, 2), (4, 4, 4)])
+def test_entropy_kernel_intervals_match_plain(cuda, ratio, interval):
+    """K4 over restart intervals at 1080p: all live, a live_entries suffix
+    ending inside an interval, and a capacity far below the rows'
+    payloads (dropped words, true bit counts, no spill into the next
+    row)."""
+    config = EncoderConfig(subsampling_ratio=ratio)
+    z, geom = _corpus_entries(config, cuda)
+    epi = entropy_ops.entries_per_interval(geom, interval)
+    cap = pipeline.restart_default_capacity_bytes(geom, interval)
+    live = geom.num_scan_entries * 2 // 3 + 1
+    for live_entries, capacity in ((None, cap), (live, cap), (None, 64)):
+        want, want_bits = entropy_kernel.encode_entries(
+            z, geom, capacity, live_entries=live_entries,
+            entries_per_interval=epi)
+        before = entropy_kernel.ENTROPY.launches
+        got, bits = entropy_kernel.encode_entries(
+            z.to(cuda), geom, capacity, live_entries=live_entries,
+            entries_per_interval=epi)
+        torch.cuda.synchronize()
+        assert entropy_kernel.ENTROPY.launches == before + 1
+        assert torch.equal(bits.cpu(), want_bits)
+        assert torch.equal(got.cpu(), want)
+
+
+def _one_symbol_tables():
+    """1080p 4:4:4 entries that are almost all EOB, and the optimal tables
+    of their histogram: 1-bit codes, entries of 2 bits, up to 16 entries
+    ORed into one word."""
+    geom = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(1920, 1080)
+    z = torch.zeros((geom.num_scan_entries, 64), dtype=torch.int16)
+    z[::97, 1] = 1
+    z[::89, 0] = 3
+    hist = entropy_ops.symbol_histograms(z, geom).numpy()
+    specs, luts = pipeline.optimal_specs_and_luts(hist, "cpu")
+    assert min(specs[3].length_lut[specs[3].length_lut > 0]) == 1
+    return z, geom, luts
+
+
+@pytest.mark.cuda
+def test_entropy_kernel_one_symbol_tables_match_plain(cuda):
+    z, geom, luts = _one_symbol_tables()
+    dev_luts = tuple(t.to(cuda) for t in luts)
+    for epi in (None, entropy_ops.entries_per_interval(geom, 120)):
+        want, want_bits = entropy_kernel.encode_entries(
+            z, geom, 1 << 16, None, luts, entries_per_interval=epi)
+        got, bits = entropy_kernel.encode_entries(
+            z.to(cuda), geom, 1 << 16, None, dev_luts,
+            entries_per_interval=epi)
+        assert torch.equal(bits.cpu(), want_bits)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [None, 120])
+def test_pack_kernel_one_symbol_tables_match_plain(cuda, restart):
+    """The assemble tier with one-symbol optimal tables: K5 ORs the
+    boundary words of entries that share one output word."""
+    z, geom, luts = _one_symbol_tables()
+    dev_luts = tuple(t.to(cuda) for t in luts)
+    want, want_bits = scan.encode_entries(
+        z, geom, 1 << 16, restart_mcus=restart, luts=luts, packer="assemble")
+    before = pack_kernel.PACK.launches
+    got, bits = scan.encode_entries(
+        z.to(cuda), geom, 1 << 16, restart_mcus=restart, luts=dev_luts,
+        packer="assemble")
+    torch.cuda.synchronize()
+    assert pack_kernel.PACK.launches == before + 1
+    assert torch.equal(bits.cpu(), want_bits)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [None, 1, 120])
+@pytest.mark.parametrize("ratio", [(4, 2, 0), (4, 4, 4)])
+def test_pack_kernel_matches_plain(cuda, ratio, interval):
+    """K5 on corpus entries at 1080p: one row (the unbroken scan) or one
+    row per restart interval, at a fitting capacity and at one far below
+    the payload."""
+    config = EncoderConfig(subsampling_ratio=ratio)
+    z, geom = _corpus_entries(config, cuda)
+    slot_bits, slot_lens = entropy_ops.symbolize(
+        z, geom.h_factor * geom.v_factor)
+    epi = (geom.num_scan_entries if interval is None
+           else entropy_ops.entries_per_interval(geom, interval))
+    words, offsets, row_bits = scan.assemble_operands(slot_bits, slot_lens,
+                                                      epi)
+    fit = (int(row_bits.max()) // 32 + 2) * 4
+    for cap in (fit, 16):
+        want = pack_kernel.assemble_bitstream(words, offsets, cap)
+        before = pack_kernel.PACK.launches
+        got = pack_kernel.assemble_bitstream(words.to(cuda),
+                                             offsets.to(cuda), cap)
+        torch.cuda.synchronize()
+        assert pack_kernel.PACK.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packer", ["fused", "assemble"])
+@pytest.mark.parametrize(
+    "config",
+    [
+        EncoderConfig(restart_interval=7),
+        EncoderConfig(subsampling_ratio=(4, 2, 2), restart_interval=1,
+                      dct_algorithm=DctAlgorithm.BIN_DCT),
+        EncoderConfig(subsampling_ratio=(4, 4, 4), optimize_huffman=True),
+        EncoderConfig(optimize_huffman=True, restart_interval=3, quality=90),
+    ],
+    ids=["restart7", "bin-422-restart1", "optimize-444", "optimize-restart3"],
+)
+@pytest.mark.parametrize("size", [(517, 333), (64, 48), (1920, 1080)])
+def test_restart_and_optimize_on_card_match_cpu(cuda, size, config, packer):
+    """Each packer's kernel really runs (K4 for "fused", K5 for
+    "assemble", with custom tables too) and the file is the CPU path's."""
+    width, height = size
+    rgb = np.random.default_rng(5).integers(0, 256, (height, width, 3), np.uint8)
+    kernel = {"fused": entropy_kernel.ENTROPY, "assemble": pack_kernel.PACK}
+    before = kernel[packer].launches
+    got = pipeline.encode_array(rgb, config, device=cuda, packer=packer)
+    assert kernel[packer].launches > before
     want = pipeline.encode_array(rgb, config, device="cpu")
     assert got.file_bytes == want.file_bytes

@@ -3,8 +3,10 @@
 Whole JFIF files must be byte-identical: jpeg_encoder_torch.pipeline
 against jpeg_encoder_tpu.pipeline (run on CPU) and against the oracle,
 over every subsampling ratio, the dim % (8 * factor) == 1 quirk
-geometries, two quality settings, a forced capacity-ladder retry, and
-binDCT with and without the descale fix (the oracle has no descale). The
+geometries, two quality settings, a forced capacity-ladder retry, binDCT
+with and without the descale fix (the oracle has no descale), restart
+markers and optimized tables (more in test_torch_restart.py and
+test_torch_optimize.py). The
 exception is --fast-dct, held to its tolerance: coefficients within max
 |diff| 1 of the oracle's exact RealDCT at a mismatch rate of at most 5e-4,
 and a decoded picture within 0.5 dB PSNR of the exact encode.
@@ -18,7 +20,7 @@ import pytest
 import torch
 from PIL import Image
 
-from jpeg_encoder_tpu import oracle
+from jpeg_encoder_tpu import oracle, tables
 from jpeg_encoder_tpu import pipeline as jax_pipeline
 from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_tpu.io import bmp, jfif
@@ -134,11 +136,58 @@ def test_validate_scan_ranges():
         EncoderConfig(restart_interval=4),
         EncoderConfig(optimize_huffman=True),
     ],
+    ids=["restart_interval", "optimize_huffman"],
 )
-def test_unported_options_raise(config):
+def test_restart_and_optimize_options_match_oracle(config):
+    """The two options the port once refused encode on CPU, byte for byte
+    as the oracle: its restart-framed scan, and its bit writer with the
+    port's optimal tables."""
+    rgb = np.random.default_rng(12).integers(0, 256, (32, 64, 3), np.uint8)
+    got = pipeline.encode_array(rgb, config, device="cpu")
+    golden = oracle.encode_oracle(rgb, EncoderConfig())
+    coeffs = (golden.y_coeffs, golden.cb_coeffs, golden.cr_coeffs)
+    if config.restart_interval is not None:
+        segments, bits = oracle.entropy_encode_restart(
+            *coeffs, golden.geom, config.restart_interval
+        )
+        assert len(segments) == 2  # 8 MCUs in intervals of 4
+        want = jfif.assemble_restart(
+            golden.geom, [np.frombuffer(s, np.uint8) for s in segments],
+            bits, config.restart_interval,
+        )
+        assert got.bit_length == sum(bits)
+    else:
+        geom = golden.geom
+        hist, _ = pipeline.stats_core(torch.from_numpy(rgb), geom,
+                                      config.dct_algorithm)
+        specs, _ = pipeline.optimal_specs_and_luts(hist.numpy(), "cpu")
+        writer = oracle.BitWriter()
+        zz = [c.reshape(-1, 64)[:, tables.ZIGZAG_ORDER] for c in coeffs]
+        prev = [0, 0, 0]
+        for mcu, blocks in enumerate(oracle.luma_scan_order(geom)):
+            for b in blocks:
+                prev[0] = oracle.encode_block(zz[0][b], prev[0], specs[0],
+                                              specs[2], writer)
+            for c in (1, 2):
+                prev[c] = oracle.encode_block(zz[c][mcu], prev[c], specs[1],
+                                              specs[3], writer)
+        want = jfif.assemble(geom, writer.to_bytes(), dht_specs=specs)
+        assert got.bit_length == writer.bit_length < golden.bit_length
+    assert got.file_bytes == want
+
+
+@pytest.mark.parametrize(
+    "config",
+    [
+        EncoderConfig(restart_interval=4),
+        EncoderConfig(optimize_huffman=True),
+    ],
+    ids=["restart_interval", "optimize_huffman"],
+)
+def test_restart_and_optimize_refuse_return_coeffs(config):
     rgb = np.zeros((16, 16, 3), np.uint8)
-    with pytest.raises(NotImplementedError):
-        pipeline.encode_array(rgb, config, device="cpu")
+    with pytest.raises(ValueError, match="return_coeffs"):
+        pipeline.encode_array(rgb, config, device="cpu", return_coeffs=True)
 
 
 def test_device_must_be_named():

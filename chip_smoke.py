@@ -4,9 +4,12 @@
 
 Builds the port's CUDA kernels from jpeg_encoder_torch/csrc (one nvcc per
 source, all at once), holds each against its plain PyTorch version (K1
-RealDCT, K4 entropy, K3 binDCT and K5 bitstream assembly exactly, K4 also
-over restart intervals with live_entries; K2 --fast-dct to max |diff| 1 at
-a mismatch rate below 1e-3, and 5e-4 against K1), drives the main paths
+RealDCT, K4 entropy, K3 binDCT, K5 bitstream assembly and the per-block
+tier K6a/b and K6c exactly, K4 also over restart intervals with
+live_entries and over a batch of images with per-image rows, intervals and
+tables, K6 also against K1 and K3 on the same blocks; K2 --fast-dct to max
+|diff| 1 at a mismatch rate below 1e-3, and 5e-4 against K1), drives the
+single-image paths
 (BMP file -> JFIF file with jpeg_encoder_torch.pipeline.encode_file on the
 card) with RealDCT at 1080p, 4K and odd geometries at every subsampling
 ratio, with binDCT (bug-parity and descaled) at 1080p and odd geometries,
@@ -16,13 +19,21 @@ Huffman tables (alone and with restart markers) and with the assemble
 packer (K5; Annex K and optimized tables), checks every exact file byte
 for byte against the port's CPU path (and small ones against the NumPy
 oracle, whose optimized tables count its own symbols) and the --fast-dct file
-against the CPU entropy coder run on the card's own coefficients, and
-times the kernels and the end-to-end encodes. Any mismatch or error exits
-non-zero before the final line, which is
+against the CPU entropy coder run on the card's own coefficients, drives
+the batch path (jpeg_encoder_torch.parallel.batch.encode_batch: 32 x 1080p
+and 12 x 4K at 4:2:0, 4:2:2, 4:4:4, binDCT, --fast-dct, restart 120 and 7,
+optimize alone and with restart 120, a forced single-image retry; every
+file against the single-image card path, a few against the CPU path) and
+the per-block tier (K6 on every plane of the 1080p corpus, against K1 and
+K3), each path between a reset and a read of the launch counts, and times
+the kernels (beside their bounds), the batch against a loop of single
+encodes, and the end-to-end encodes. Any mismatch or error exits non-zero
+before the final line, which is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
-Needs one CUDA card, nvcc and no network; imports no JAX.
+Needs one CUDA card, nvcc and no network; imports no JAX and nothing of
+jpeg_encoder_tpu.
 """
 
 from __future__ import annotations
@@ -92,6 +103,23 @@ def busy_ms(fn, reps: int = REPS) -> float | None:
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
     return total_us / 1e3 / reps if total_us else None
+
+
+def top_device_ops(fn, count: int = 6, reps: int = 5) -> list[tuple]:
+    """The device operations of fn() with the most device time, from
+    torch.profiler: (name, device ms per call), largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = [(e.key, e.self_device_time_total / 1e3 / reps)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(ops, key=lambda op: -op[1])[:count]
 
 
 def fmt(ms: float | None) -> str:
@@ -234,7 +262,7 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
 def k4_phase(cuda, images_1080) -> float:
     """Entropy kernel vs its plain version on CPU tensors; max |error|
     over the payload bytes within capacity and the bit counts."""
-    from jpeg_encoder_tpu.config import EncoderConfig
+    from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
     from jpeg_encoder_torch.ops import entropy as entropy_ops
@@ -285,7 +313,7 @@ def k4_interval_phase(cuda, images_1080) -> float:
     with every entry live, with a live_entries suffix ending inside an
     interval, and at 8 bytes a row (overflowing rows: dropped words, true
     bit counts). Returns the max |error| over bytes and bit counts."""
-    from jpeg_encoder_tpu.config import EncoderConfig
+    from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
     from jpeg_encoder_torch.ops import entropy as entropy_ops
@@ -323,7 +351,7 @@ def k5_phase(cuda, images_1080) -> float:
     of 1080p corpus content at 4:2:0 and 4:4:4, as one row (the unbroken
     scan) and as one row per restart interval of 120 and of 1 MCUs, at a
     fitting capacity and at 16 bytes a row. Returns the max |error|."""
-    from jpeg_encoder_tpu.config import EncoderConfig
+    from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch import scan
     from jpeg_encoder_torch.kernels import pack as pack_kernel
     from jpeg_encoder_torch.ops import entropy as entropy_ops
@@ -372,7 +400,7 @@ def oracle_segments(zz, geom, restart, specs):
     """The oracle's zigzag coefficients [Y, Cb, Cr] coded bit-serially
     with oracle.encode_block and specs (Y-DC, C-DC, Y-AC, C-AC), DC
     predictors reset at every restart interval: (segments, bit counts)."""
-    from jpeg_encoder_tpu import oracle
+    from jpeg_encoder_torch import oracle
 
     order = oracle.luma_scan_order(geom)
     step = restart or geom.num_mcus
@@ -398,11 +426,12 @@ def oracle_file(rgb: np.ndarray, config) -> bytes:
     optimize_huffman, its coefficients coded bit-serially
     (oracle.encode_block) with the optimal tables of the symbols that
     encode_block itself counts in a first pass over the same framing, one
-    1-padded segment per restart interval. Nothing of the port is used."""
+    1-padded segment per restart interval. Nothing of the port's encoder is
+    used: only its copies of the oracle, the tables and the JFIF writer."""
     import dataclasses
 
-    from jpeg_encoder_tpu import oracle, tables
-    from jpeg_encoder_tpu.io import jfif
+    from jpeg_encoder_torch import oracle, tables
+    from jpeg_encoder_torch.io import jfif
 
     ref = oracle.encode_oracle(rgb, dataclasses.replace(
         config, restart_interval=None, optimize_huffman=False))
@@ -441,8 +470,8 @@ def check_fast_file(cuda, label, rgb, config, got: bytes) -> None:
     coefficients."""
     import dataclasses
 
-    from jpeg_encoder_tpu import tables
-    from jpeg_encoder_tpu.io import jfif
+    from jpeg_encoder_torch import tables
+    from jpeg_encoder_torch.io import jfif
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.ops import entropy as entropy_ops
 
@@ -483,8 +512,8 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
     alone."""
     import dataclasses
 
-    from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
-    from jpeg_encoder_tpu.io import bmp
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+    from jpeg_encoder_torch.io import bmp
     from jpeg_encoder_torch import pipeline
 
     rng = np.random.default_rng(11)
@@ -568,20 +597,17 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
         paths.append((src, os.path.join(tmp, f"case{i}_cuda.jpg")))
 
     # The main paths on the card, alone between the reset and the read.
-    kernels = all_kernels()
-    for k in kernels:
-        k.launches = 0
-    for (label, _, config, _, packer), (src, dst) in zip(cases, paths):
-        if packer == "fused":
-            pipeline.encode_file(src, dst, config, device=cuda)
-            continue
-        result = pipeline.encode_array(bmp.read(src), config, device=cuda,
-                                       packer=packer)
-        with open(dst, "wb") as f:
-            f.write(result.file_bytes)
-    counts = {k.name: k.launches for k in kernels}
-    check(all(counts.values()), f"a kernel of the main paths never ran: {counts}")
-    print(f"e2e launches: {counts}", flush=True)
+    def drive():
+        for (label, _, config, _, packer), (src, dst) in zip(cases, paths):
+            if packer == "fused":
+                pipeline.encode_file(src, dst, config, device=cuda)
+                continue
+            result = pipeline.encode_array(bmp.read(src), config, device=cuda,
+                                           packer=packer)
+            with open(dst, "wb") as f:
+                f.write(result.file_bytes)
+
+    counts = counted("e2e", drive, E2E_KERNELS)
 
     for (label, rgb, config, kind, packer), (src, dst) in zip(cases, paths):
         with open(dst, "rb") as f:
@@ -626,6 +652,251 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
     return counts
 
 
+def blocks_as_plane(blocks: torch.Tensor, blocks_x: int) -> torch.Tensor:
+    """The (H, W) plane whose row-major blocks are `blocks`."""
+    n = blocks.shape[0]
+    return (blocks.reshape(n // blocks_x, blocks_x, 8, 8).permute(0, 2, 1, 3)
+            .reshape(n // blocks_x * 8, blocks_x * 8).contiguous())
+
+
+def block_pairs():
+    """(name, per-block wrapper, 3-plane wrapper) of K6a/b and K6c."""
+    from jpeg_encoder_torch.kernels import dct as dct_kernel
+
+    return (("realdct_blocks", dct_kernel.real_dct_quant_zigzag,
+             dct_kernel.real_dct_quant_planes_zigzag),
+            ("bindct_blocks", dct_kernel.bin_dct_quant_zigzag,
+             dct_kernel.bin_dct_quant_planes_zigzag))
+
+
+def k6_phase(cuda, rng) -> dict[str, float]:
+    """K6a/b and K6c vs their plain versions on CPU tensors, exact, on the
+    32,640 random blocks of a 1088x1920 plane, luma and chroma, quality
+    None and 35; and vs K1 and K3 on the plane whose blocks they are
+    (tests/test_kernels.py's check of the TPU tier). Max |error| a kernel."""
+    worst = {name: 0 for name, _, _ in block_pairs()}
+    other = torch.zeros((8, 8), dtype=torch.uint8, device=cuda)
+    for quality in (None, 35):
+        blocks = torch.from_numpy(
+            rng.integers(0, 256, (32640, 64), dtype=np.uint8))
+        dev = blocks.to(cuda)
+        plane = blocks_as_plane(dev, 240)
+        for is_luma in (True, False):
+            planes = (plane, other, other) if is_luma else (other, plane, plane)
+            for name, fn, planes_fn in block_pairs():
+                got = fn(dev, is_luma, quality)
+                torch.cuda.synchronize()
+                err = max_err(got, fn(blocks, is_luma, quality))
+                ref = planes_fn(*planes, quality)[0 if is_luma else 1]
+                err_ref = max_err(got, ref.cpu())
+                worst[name] = max(worst[name], err)
+                check(err == 0 and err_ref == 0,
+                      f"{name} luma={is_luma} q={quality}: max |err| {err} "
+                      f"vs plain, {err_ref} vs the 3-plane kernel")
+    print("K6a/b realdct_blocks, K6c bindct_blocks: 32,640 random blocks, "
+          "luma and chroma, quality None and 35: kernel == plain == K1 / K3 "
+          "on the same blocks (exact)", flush=True)
+    return {k: float(v) for k, v in worst.items()}
+
+
+def block_tier_path(cuda, images_1080) -> dict[str, int]:
+    """The per-block tier, driven: every 1080p corpus image's three planes
+    (the main path's colour, pad and subsample) through K6a/b (RealDCT,
+    quality None and 90) and K6c (binDCT), plane by plane with the
+    plane's own table; then each result held against K1 and K3 on the
+    same planes. Returns the tier's launch counts."""
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.ops import sample
+
+    height, width = next(iter(images_1080.values())).shape[:2]
+    geom = EncoderConfig().geometry(width, height)
+    planes = [front_planes(torch.from_numpy(rgb).to(cuda), geom)
+              for rgb in images_1080.values()]
+    jobs = [(i, p, name, quality) for i, three in enumerate(planes)
+            for p in range(3) for name, _, _ in block_pairs()
+            for quality in ((None, 90) if name == "realdct_blocks" else (None,))]
+    fns = {name: fn for name, fn, _ in block_pairs()}
+    results = []
+
+    def drive():
+        for i, p, name, quality in jobs:
+            blocks = sample.blockify(planes[i][p]).contiguous()
+            results.append(fns[name](blocks, p == 0, quality))
+        torch.cuda.synchronize()
+
+    counts = counted("per-block tier", drive, BLOCK_KERNELS)
+    planes_fns = {name: fn for name, _, fn in block_pairs()}
+    for (i, p, name, quality), got in zip(jobs, results):
+        want = planes_fns[name](*planes[i], quality)[p].to(torch.int32)
+        check(torch.equal(got, want),
+              f"per-block tier {name} image {i} plane {p} q={quality}: "
+              "!= the 3-plane kernel")
+    print(f"per-block tier: {len(jobs)} planes of {len(planes)} 1080p 4:2:0 "
+          "images, each == K1 / K3 on the same plane", flush=True)
+    return counts
+
+
+def k4_batch_phase(cuda, images_1080) -> float:
+    """K4 over a batch vs its plain version (run on the card's tensors):
+    the four 1080p corpus images at 4:2:0, unbroken (one row an image)
+    and every 7 MCUs (8,160 % 7 != 0: intervals end at every image), with
+    Annex-K tables and with each image's optimal tables. Max |error|."""
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    config = EncoderConfig()
+    images = torch.from_numpy(np.stack(list(images_1080.values()))).to(cuda)
+    geom = config.geometry(images.shape[2], images.shape[1])
+    z, _ = pipeline.scan_entries(images, geom, config.dct_algorithm)
+    worst = 0
+    for restart in (None, 7):
+        epi = (geom.num_scan_entries if restart is None
+               else entropy_ops.entries_per_interval(geom, restart))
+        hists = entropy_ops.symbol_histograms(z, geom, restart).cpu()
+        luts = [pipeline.optimal_specs_and_luts(h.numpy(), cuda)[1]
+                for h in hists]
+        per_image = tuple(torch.stack([t[i] for t in luts]) for i in (0, 1))
+        cap = pipeline.restart_default_capacity_bytes(geom, restart or 10**4)
+        for tables in (None, per_image):
+            args = dict(luts=tables, entries_per_interval=epi)
+            got, bits = entropy_kernel.encode_entries(z, geom, cap, **args)
+            want, want_bits = entropy_ops.encode_entries(z, geom, cap, **args)
+            torch.cuda.synchronize()
+            err = max(max_err(bits, want_bits.cpu()), max_err(got, want.cpu()))
+            worst = max(worst, err)
+            check(err == 0, f"K4 batch restart {restart} tables "
+                  f"{'per image' if tables else 'Annex K'}: max |err| {err}")
+        print(f"K4 batch of {len(hists)} 1080p images, restart {restart} "
+              f"({bits.numel()} rows): kernel == plain (Annex K and per-image "
+              "tables)", flush=True)
+    return float(worst)
+
+
+def variants(images: list[np.ndarray], count: int) -> np.ndarray:
+    """count distinct images from a few: rolled, flipped, channel-swapped."""
+    out = []
+    for k in range(count):
+        rgb = images[k % len(images)]
+        j = k // len(images)
+        if j % 2:
+            rgb = rgb[:, ::-1]
+        if j % 4 >= 2:
+            rgb = rgb[::-1, :, ::-1]
+        out.append(np.roll(rgb, 97 * j, axis=1))
+    return np.ascontiguousarray(np.stack(out))
+
+
+def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
+    """The batch path, driven (parallel.batch.encode_batch on the card): 32
+    1080p and 12 4K images at 4:2:0 (two and three chunks at the default
+    budget), 8 at 4:2:2 and 8 at 4:4:4, binDCT, --fast-dct, restart 120
+    and 7, optimize alone and with restart 120, and a chunk with one
+    member that overflows the shared capacity (retried alone). Every file
+    == the single-image card path's, a few == the CPU path's. Then ms per
+    image of the batch against a loop of encode_array on the same images.
+    Returns the batch path's launch counts."""
+    import dataclasses
+
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.parallel import batch
+
+    base = list(images_1080.values())
+    hd = variants(base, 32)
+    uhd = variants(list(images_4k.values()), 12)
+    noise = np.random.default_rng(5).integers(0, 256, hd[0].shape, np.uint8)
+    retry_images = np.stack([hd[0], noise, hd[1], hd[2]])
+    default = EncoderConfig()
+    optimize = EncoderConfig(optimize_huffman=True)
+    cases = [
+        ("32 x 1920x1080 4:2:0", hd, default),
+        ("12 x 3840x2160 4:2:0", uhd, default),
+        ("8 x 1920x1080 4:2:2", hd[:8], EncoderConfig(subsampling_ratio=(4, 2, 2))),
+        ("8 x 1920x1080 4:4:4", hd[8:16], EncoderConfig(subsampling_ratio=(4, 4, 4))),
+        ("8 x 1920x1080 bin-dct", hd[16:24],
+         EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)),
+        ("8 x 1920x1080 fast-dct", hd[24:], EncoderConfig(fast_dct=True)),
+        ("8 x 1920x1080 restart 120", hd[:8], EncoderConfig(restart_interval=120)),
+        ("4 x 1920x1080 restart 7", hd[8:12], EncoderConfig(restart_interval=7)),
+        ("8 x 1920x1080 optimize", hd[12:20], optimize),
+        ("8 x 1920x1080 optimize restart 120", hd[20:28],
+         dataclasses.replace(optimize, restart_interval=120)),
+        ("4 x 1920x1080 retry (0.125 B/px, one noise member)", retry_images,
+         EncoderConfig(capacity_bytes_per_pixel=0.125)),
+    ]
+    retried = []
+    retry = batch._retry
+
+    def spy(rgb, *args):
+        retried.append(rgb)
+        return retry(rgb, *args)
+
+    batch._retry = spy
+    results = []
+    try:
+        counts = counted("batch", lambda: results.extend(
+            batch.encode_batch(images, config, device=cuda)
+            for _, images, config in cases), BATCH_KERNELS)
+    finally:
+        batch._retry = retry
+    check(len(retried) == 1 and np.array_equal(retried[0], noise),
+          f"the retry case retried {len(retried)} members, not the noise one")
+    cpu_checked = ("32 x 1920x1080 4:2:0", "8 x 1920x1080 4:4:4",
+                   "8 x 1920x1080 optimize restart 120")
+    for (label, images, config), files in zip(cases, results):
+        geom = config.geometry(images.shape[2], images.shape[1])
+        chunk = batch.chunk_size_images(geom)
+        for i, (rgb, got) in enumerate(zip(images, files)):
+            want = pipeline.encode_array(rgb, config, device=cuda).file_bytes
+            check(got == want, f"batch {label} member {i}: != encode_array "
+                  "on the card")
+        note = ""
+        if label in cpu_checked:
+            want = pipeline.encode_array(images[1], config, device="cpu")
+            check(files[1] == want.file_bytes,
+                  f"batch {label} member 1: != the CPU path")
+            note = "; member 1 == CPU path"
+        print(f"batch {label}: {len(files)} files in "
+              f"{-(-len(files) // chunk)} chunks of <= {chunk}, each == "
+              f"encode_array on the card{note}", flush=True)
+
+    for label, images in (("1920x1080", hd), ("3840x2160", uhd)):
+        geom = default.geometry(images.shape[2], images.shape[1])
+        chunk = images[: batch.chunk_size_images(geom)]
+        cap = batch.chunk_capacity_bytes(default, geom)
+        z = batch._entries(chunk, default, geom, cuda)
+        stages = {
+            "dispatch_chunk": lambda: batch.dispatch_chunk(
+                chunk, default, geom, cap, device=cuda),
+            "K4 alone": lambda: entropy_kernel.encode_entries(
+                z, geom, cap, entries_per_interval=geom.num_scan_entries),
+        }
+        parts = ", ".join(
+            f"{k} events {cuda_ms(f, reps=5) / len(chunk):.4f}, busy "
+            f"{busy_ms(f, reps=5) / len(chunk):.4f}" for k, f in stages.items())
+        print(f"device ms/image, chunk of {len(chunk)} x {label} 4:2:0: "
+              f"{parts} ({card})", flush=True)
+        top = top_device_ops(stages["dispatch_chunk"])
+        print(f"device ms/image by operation, dispatch_chunk {len(chunk)} x "
+              f"{label}: " + "; ".join(f"{name[:60]} {ms / len(chunk):.4f}"
+                                       for name, ms in top)
+              + f" ({card})", flush=True)
+        n = len(images)
+        batch_ms = host_ms(lambda: batch.encode_batch(images, default,
+                                                      device=cuda), reps=3)
+        loop_ms = host_ms(lambda: [pipeline.encode_array(rgb, default,
+                                                         device=cuda)
+                                   for rgb in images], reps=3)
+        print(f"time batch {n} x {label} 4:2:0: encode_batch "
+              f"{batch_ms / n:.3f} ms/image, loop of encode_array "
+              f"{loop_ms / n:.3f} ms/image, numpy RGB in -> JFIF bytes out "
+              f"({card})", flush=True)
+    return counts
+
+
 def interval_pairs(z, geom):
     """(name, kernel, plain) of K4 in interval mode (restart every 120 MCUs,
     one MCU row at 1080p, and every MCU) and of K5 on the assemble tier's
@@ -665,19 +936,45 @@ def interval_pairs(z, geom):
     return pairs
 
 
-def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes
+# a second, float32 FLOP a second outside the tensor cores (a fused
+# multiply-add counts 2). Without FMAs the FP32 pipes issue half that many
+# operations; INT32 has half the FP32 lanes, so a quarter of the FLOP rate.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+FP32_ISSUE_OPS = FP32_FLOPS / 2
+INT32_OPS = FP32_FLOPS / 4
+# Operations per 8x8 block: RealDCT, 64 coefficients of 64 steps (two
+# multiplies, an add) plus a scale multiply and a divide; binDCT, 16
+# 8-point lifts of 43 integer operations, 64 level shifts, 64 divides.
+REALDCT_BLOCK_OPS = 64 * (64 * 3 + 2)
+BINDCT_BLOCK_OPS = 16 * 43 + 64 + 64
+
+
+def bound(num_bytes: int, ops: int = 0, rate: float = 1.0) -> tuple:
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the operations over their peak."""
+    t_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
     """Kernel vs plain times (CUDA events around each call, and the
     device-busy time inside it), the device time of each encode stage, and
     the end-to-end time per image, at 1080p and 4K (4:2:0, corpus
-    content). Returns the 1080p kernel and plain event times."""
+    content). Returns the 1080p kernel and plain event times, each
+    kernel's bound on the same inputs, and the time of one PyTorch call
+    computing the same function where there is one (K2's matmul)."""
     import dataclasses
 
-    from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
     from jpeg_encoder_torch.ops import dct as dct_ops
     from jpeg_encoder_torch.ops import entropy as entropy_ops
+    from jpeg_encoder_torch.ops import sample
 
     config = EncoderConfig()
     bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
@@ -693,6 +990,25 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
         coeffs = dct_kernel.real_dct_quant_planes_zigzag(*planes)
         z = entropy_ops.marshal_scan_inputs(*coeffs, geom)
         cap = pipeline.default_capacity_bytes(geom)
+        y_blocks = sample.blockify(planes[0]).contiguous()
+        block_pairs_1080 = [
+            ("realdct_blocks",
+             lambda: dct_kernel.real_dct_quant_zigzag(y_blocks, True),
+             lambda: dct_ops.real_dct_quant_zigzag(y_blocks, True)),
+            ("bindct_blocks",
+             lambda: dct_kernel.bin_dct_quant_zigzag(y_blocks, True),
+             lambda: dct_ops.bin_dct_quant_zigzag(y_blocks, True)),
+        ]
+        if label == "1920x1080":
+            bounds = kernel_bounds(geom, planes, z, cap, y_blocks)
+            library = dict.fromkeys(bounds)
+            shifted = (torch.cat([sample.blockify(p) for p in planes])
+                       .to(torch.int16) - 128).to(torch.float32)
+            kzz = dct_ops.fast_device_constant(cuda)
+            library["fastdct"] = cuda_ms(lambda: torch.matmul(shifted, kzz.T))
+            print(f"time library torch.matmul ({shifted.shape[0]}, 64) x "
+                  f"(64, 64) f32, TF32 off (K2's product): "
+                  f"{library['fastdct']:.4f} ms ({card})", flush=True)
 
         # Turns: plain, kernel, kernel, plain; each figure is the mean of
         # the two runs' medians.
@@ -709,7 +1025,8 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
             ("fastdct",
              lambda: dct_kernel.real_dct_fast_planes_zigzag(*planes),
              lambda: dct_ops.real_dct_fast_planes_zigzag(*planes)),
-        ] + (interval_pairs(z, geom) if label == "1920x1080" else []):
+        ] + (interval_pairs(z, geom) + block_pairs_1080
+             if label == "1920x1080" else []):
             p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
             times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
             print(f"time {name} {label} 4:2:0: kernel {(k1 + k2) / 2:.4f} ms, "
@@ -782,18 +1099,69 @@ def timing_phase(cuda, images_1080, images_4k, card) -> dict[str, tuple]:
                                                  None))
     print(f"time host restart_result 1920x1080 4:2:0 restart 1 "
           f"({len(bit_list)} segments): {ms:.3f} ms", flush=True)
-    return times
+    return times, bounds, library
+
+
+def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
+    """Each kernel's bound on the inputs its timing uses at 1080p 4:2:0
+    (every input byte read once, every output byte written once)."""
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    n = sum(p.numel() for p in planes) // 64
+    plane_bytes = sum(p.numel() for p in planes) + n * 64 * 2
+    n_y = y_blocks.shape[0]
+    epi = entropy_ops.entries_per_interval(geom, 120)
+    rows = -(-geom.num_scan_entries // epi)
+    cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
+    bounds = {
+        "realdct": bound(plane_bytes, n * REALDCT_BLOCK_OPS, FP32_ISSUE_OPS),
+        "fastdct": bound(plane_bytes, n * 2 * 64 * 64, FP32_FLOPS),
+        "bindct": bound(plane_bytes, n * BINDCT_BLOCK_OPS, INT32_OPS),
+        # z in, the two (2, 256) tables, one row of cap bytes and its count.
+        "entropy": bound(z.numel() * 2 + 4096 + cap + 4),
+        # K5 at restart 120 (timing's "pack"): per-entry words and offsets
+        # in, one row of cap120 bytes per interval out.
+        "pack": bound(rows * epi * (entropy_ops.ENTRY_WORDS + 1) * 4
+                      + rows * cap120),
+        "realdct_blocks": bound(n_y * 64 * 5, n_y * REALDCT_BLOCK_OPS,
+                                FP32_ISSUE_OPS),
+        "bindct_blocks": bound(n_y * 64 * 5, n_y * BINDCT_BLOCK_OPS,
+                               INT32_OPS),
+    }
+    return bounds
 
 
 def all_kernels():
     """Every kernel of the port: K1 realdct, K4 entropy, K3 bindct, K2
-    fastdct, K5 pack."""
+    fastdct, K5 pack, K6a/b realdct_blocks, K6c bindct_blocks."""
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
     from jpeg_encoder_torch.kernels import pack as pack_kernel
 
     return (dct_kernel.REALDCT, entropy_kernel.ENTROPY, dct_kernel.BINDCT,
-            dct_kernel.FASTDCT, pack_kernel.PACK)
+            dct_kernel.FASTDCT, pack_kernel.PACK, dct_kernel.REALDCT_BLOCKS,
+            dct_kernel.BINDCT_BLOCKS)
+
+
+# The kernels each path must launch.
+E2E_KERNELS = ("realdct", "entropy", "bindct", "fastdct", "pack")
+BATCH_KERNELS = ("realdct", "entropy", "bindct", "fastdct")
+BLOCK_KERNELS = ("realdct_blocks", "bindct_blocks")
+
+
+def counted(path: str, drive, required) -> dict[str, int]:
+    """Set every launch count to 0, drive one path, read the counts; fail
+    unless every kernel in `required` launched."""
+    kernels = all_kernels()
+    for k in kernels:
+        k.launches = 0
+    drive()
+    counts = {k.name: k.launches for k in kernels}
+    check(all(counts[name] for name in required),
+          f"a kernel of the {path} path never ran: {counts}")
+    print(f"{path} launches: {counts}", flush=True)
+    return counts
 
 
 def main() -> int:
@@ -801,7 +1169,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    from jpeg_encoder_tpu.utils import corpus
+    from jpeg_encoder_torch.utils import corpus
     from jpeg_encoder_torch.kernels import _build
 
     cuda = torch.device("cuda", torch.cuda.current_device())
@@ -835,18 +1203,38 @@ def main() -> int:
     }
     errors["fastdct"] = k2_phase(cuda, rng)
     errors["entropy"] = max(k4_phase(cuda, images_1080),
-                            k4_interval_phase(cuda, images_1080))
+                            k4_interval_phase(cuda, images_1080),
+                            k4_batch_phase(cuda, images_1080))
     errors["pack"] = k5_phase(cuda, images_1080)
+    errors.update(k6_phase(cuda, rng))
+    phase_s = {}
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
-        counts = e2e_phase(cuda, images_1080, images_4k, tmp)
-    times = timing_phase(cuda, images_1080, images_4k, card)
-    check("jax" not in sys.modules, "something imported JAX")
+        path_counts = [e2e_phase(cuda, images_1080, images_4k, tmp)]
+    phase_s["e2e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_counts.append(batch_phase(cuda, images_1080, images_4k, card))
+    phase_s["batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_counts.append(block_tier_path(cuda, images_1080))
+    phase_s["per-block tier"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    times, bounds, library = timing_phase(cuda, images_1080, images_4k, card)
+    phase_s["timing"] = time.perf_counter() - t0
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                        phase_s.items()) + f" ({card})",
+          flush=True)
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "jpeg_encoder_tpu")]
+    check(not leaked, f"something imported {leaked}")
 
     kernels = [{
         "name": k.name, "route": "cuda", "source": k.source,
-        "replaces": k.replaces, "launches": counts[k.name],
+        "replaces": k.replaces,
+        "launches": sum(c[k.name] for c in path_counts),
         "max_abs_err": errors[k.name], "ms": times[k.name][0],
-        "plain_ms": times[k.name][1],
+        "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
+        "bound_by": bounds[k.name][1], "library_ms": library[k.name],
     } for k in all_kernels()]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from jpeg_encoder_tpu import oracle, tables
+from jpeg_encoder_torch import oracle, tables
 
 _F32 = np.float32
 

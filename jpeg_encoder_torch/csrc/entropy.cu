@@ -19,6 +19,15 @@
 // j + 1. The unbroken scan is one interval of all entries. Entries at
 // index >= live_entries emit nothing (a fully dead interval reports 0).
 //
+// A batch (the TPU kernel vmapped over images): z holds B images of
+// entries_per_image (E) entries each, and the intervals restart at every
+// image, so entry e lies in image e / E, in interval (e % E) / epi of that
+// image, in row (e / E) * n_int + (e % E) / epi, with n_int = ceil(E / epi)
+// rows an image; the unbroken scan of each image is epi = E. live_entries
+// counts within each image. The Huffman tables of image i are dc_lut and
+// ac_lut advanced by i * lut_stride ints (0: one pair for all); the CTAs of
+// blockIdx.y = i code image i alone, so each loads its own pair.
+//
 // The TPU kernel carries the running bit offset from one grid step to the
 // next because its grid runs in order. Hopper gives no such order, so this
 // is three passes:
@@ -47,6 +56,11 @@
 // What bounds it on Hopper: bytes moved (128 B of coefficients read twice,
 // plus the counts and the output stream) and the serial dependence of the
 // offsets, which costs the scan pass and a second symbolization.
+//
+// The offsets are int32, as in the TPU kernel, and the one scan runs over
+// the whole batch: the caller keeps B times an image's worst case below
+// 2^31 bits (kernels/entropy.py refuses more, parallel/batch.py sizes its
+// chunks under it).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -152,22 +166,27 @@ __device__ __forceinline__ void load_luts(int* lut, const int* dc_lut,
   __syncthreads();
 }
 
+// blockIdx.y is the image; its entries are e = image * per_image + local.
 __global__ void __launch_bounds__(kThreads)
-count_kernel(const int16_t* __restrict__ z, int num_entries, int epi,
+count_kernel(const int16_t* __restrict__ z, int per_image, int epi,
              int live_entries, int hv, const int* __restrict__ init_dc,
              const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
-             int* __restrict__ entry_bits) {
+             int lut_stride, int* __restrict__ entry_bits) {
   __shared__ int lut[kLutSize];
-  load_luts(lut, dc_lut, ac_lut);
+  const int base = blockIdx.y * per_image;
+  load_luts(lut, dc_lut + blockIdx.y * lut_stride,
+            ac_lut + blockIdx.y * lut_stride);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int e = blockIdx.x * kWarps + warp; e < num_entries;
-       e += gridDim.x * kWarps) {
-    if (e >= live_entries) {  // warp-uniform
+  for (int local = blockIdx.x * kWarps + warp; local < per_image;
+       local += gridDim.x * kWarps) {
+    const int e = base + local;
+    if (local >= live_entries) {  // warp-uniform
       if (lane == 0) entry_bits[e] = 0;
       continue;
     }
-    const SlotPair s = symbolize(z, e, e / epi * epi, hv, init_dc, lut, lane);
+    const SlotPair s =
+        symbolize(z, e, base + local / epi * epi, hv, init_dc, lut, lane);
     int n = s.len0 + s.len1;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(kFull, n, off);
@@ -256,17 +275,19 @@ __device__ __forceinline__ int scan_offset(const int* __restrict__ entry_offsets
                          : *total_bits;
 }
 
-// One thread per interval: its true bit count.
+// One thread per row (interval j % n_int of image j / n_int): its true bit
+// count.
 __global__ void interval_bits_kernel(const int* __restrict__ entry_offsets,
                                      const int* __restrict__ tile_offsets,
                                      const int* __restrict__ total_bits,
-                                     int num_entries, int epi,
-                                     int num_intervals,
+                                     int num_entries, int per_image, int epi,
+                                     int n_int, int num_rows,
                                      int* __restrict__ interval_bits) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= num_intervals) return;
-  const int first = j * epi;
-  const int end = num_entries - first > epi ? first + epi : num_entries;
+  if (j >= num_rows) return;
+  const int local = (j % n_int) * epi;
+  const int first = (j / n_int) * per_image + local;
+  const int end = first + (per_image - local > epi ? epi : per_image - local);
   interval_bits[j] =
       scan_offset(entry_offsets, tile_offsets, total_bits, end, num_entries) -
       scan_offset(entry_offsets, tile_offsets, total_bits, first, num_entries);
@@ -285,23 +306,28 @@ __device__ __forceinline__ void put_bits(uint32_t* buf, int offset,
   }
 }
 
+// blockIdx.y is the image, as in count_kernel; live is the image's live
+// entry count, clamped to per_image.
 __global__ void __launch_bounds__(kThreads)
-write_kernel(const int16_t* __restrict__ z, int num_entries, int epi,
-             int live_entries, int hv, const int* __restrict__ init_dc,
+write_kernel(const int16_t* __restrict__ z, int per_image, int epi, int n_int,
+             int live, int hv, const int* __restrict__ init_dc,
              const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
-             const int* __restrict__ entry_offsets,
+             int lut_stride, const int* __restrict__ entry_offsets,
              const int* __restrict__ tile_offsets, uint32_t* __restrict__ out,
              int num_words) {
   __shared__ int lut[kLutSize];
   __shared__ uint32_t buf[kWarps][kEntryWords];
-  load_luts(lut, dc_lut, ac_lut);
+  const int base = blockIdx.y * per_image;
+  load_luts(lut, dc_lut + blockIdx.y * lut_stride,
+            ac_lut + blockIdx.y * lut_stride);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   uint32_t* wbuf = buf[warp];
-  for (int e = blockIdx.x * kWarps + warp; e < live_entries;
-       e += gridDim.x * kWarps) {
-    const int interval = e / epi;
-    const int first = interval * epi;
+  for (int local = blockIdx.x * kWarps + warp; local < live;
+       local += gridDim.x * kWarps) {
+    const int e = base + local;
+    const int row_index = blockIdx.y * n_int + local / epi;
+    const int first = base + local / epi * epi;
     const SlotPair s = symbolize(z, e, first, hv, init_dc, lut, lane);
     const int n = s.len0 + s.len1;
     int incl = n;
@@ -314,15 +340,15 @@ write_kernel(const int16_t* __restrict__ z, int num_entries, int epi,
     if (entry_len == 0) continue;  // warp-uniform
     const int offset = entry_offsets[e] + tile_offsets[e / kScanTile] -
                        entry_offsets[first] - tile_offsets[first / kScanTile];
-    uint32_t* row = out + static_cast<size_t>(interval) * num_words;
+    uint32_t* row = out + static_cast<size_t>(row_index) * num_words;
     const int phase = offset & 31;
     const int first_word = offset >> 5;
     const int words = (phase + entry_len + 31) >> 5;
     for (int w = lane; w < words; w += 32) wbuf[w] = 0;
     __syncwarp();
-    const int local = phase + incl - n;
-    put_bits(wbuf, local, s.bits0, s.len0);
-    put_bits(wbuf, local + s.len0, s.bits1, s.len1);
+    const int start = phase + incl - n;  // this lane's first bit in wbuf
+    put_bits(wbuf, start, s.bits0, s.len0);
+    put_bits(wbuf, start + s.len0, s.bits1, s.len1);
     __syncwarp();
     for (int w = lane; w < words; w += 32) {
       const int gw = first_word + w;
@@ -338,7 +364,9 @@ write_kernel(const int16_t* __restrict__ z, int num_entries, int epi,
   }
 }
 
-int grid_for(int warps_of_work) {
+// CTAs a grid row (one image) of warps_of_work entries: at most 16 CTAs an
+// SM over all images, at least one a row.
+int grid_for(int warps_of_work, int images) {
   int device = 0, sms = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
@@ -346,40 +374,47 @@ int grid_for(int warps_of_work) {
     sms = 132;
   }
   const int ctas = (warps_of_work + kWarps - 1) / kWarps;
-  return ctas < 16 * sms ? ctas : 16 * sms;
+  const int cap = 16 * sms / images > 1 ? 16 * sms / images : 1;
+  return ctas < cap ? ctas : cap;
 }
 
 }  // namespace
 
-// z: (num_entries, 64) int16 scan entries, raw DC in slot 0, 4-byte aligned,
-// cut into ceil(num_entries / epi) intervals of epi entries (a multiple of
-// the MCU's hv + 2 blocks); entries at index >= live_entries (clamped to
-// [0, num_entries] by the caller) emit nothing. init_dc: 3 int32 DC
-// predictors (Y, Cb, Cr) of every interval's first entries. dc_lut, ac_lut:
-// (2, 256) int32 packed tables (row 0 luma, row 1 chroma). Scratch:
-// entry_bits (num_entries int32), tile_sums (ceil(num_entries / 4096)
-// int32), total_bits (1 int32). Outputs: interval_bits (one int32 per
-// interval), out (num_words u32 per interval, byte-swapped big-endian
-// words). Returns the first cudaError_t met (0 on success).
-extern "C" int jt_entropy_encode(const int16_t* z, int num_entries, int epi,
-                                 int live_entries, int hv, const int* init_dc,
-                                 const int* dc_lut, const int* ac_lut,
+// z: (num_entries, 64) int16 scan entries, raw DC in slot 0, 4-byte aligned:
+// num_entries / per_image images, each cut into n_int = ceil(per_image /
+// epi) intervals of epi entries (a multiple of the MCU's hv + 2 blocks);
+// entries at an image's index >= live_entries (clamped to [0, per_image] by
+// the caller) emit nothing. init_dc: 3 int32 DC predictors (Y, Cb, Cr) of
+// every interval's first entries. dc_lut, ac_lut: (2, 256) int32 packed
+// tables (row 0 luma, row 1 chroma) for image 0, image i's lut_stride * i
+// ints further on. Scratch: entry_bits (num_entries int32), tile_sums
+// (ceil(num_entries / 4096) int32), total_bits (1 int32). Outputs:
+// interval_bits (one int32 per row), out (num_words u32 per row,
+// byte-swapped big-endian words). Returns the first cudaError_t met (0 on
+// success).
+extern "C" int jt_entropy_encode(const int16_t* z, int num_entries,
+                                 int per_image, int epi, int live_entries,
+                                 int hv, const int* init_dc, const int* dc_lut,
+                                 const int* ac_lut, int lut_stride,
                                  int* entry_bits, int* tile_sums,
                                  int* total_bits, int* interval_bits,
                                  uint32_t* out, int num_words, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_entries <= 0 || epi <= 0) {
+  if (num_entries <= 0 || per_image <= 0 || epi <= 0 ||
+      num_entries % per_image != 0 || num_entries / per_image > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int num_intervals = (num_entries + epi - 1) / epi;
+  const int images = num_entries / per_image;
+  const int n_int = (per_image + epi - 1) / epi;
+  const int num_rows = images * n_int;
   cudaError_t err = cudaMemsetAsync(
-      out, 0, sizeof(uint32_t) * num_words * static_cast<size_t>(num_intervals),
+      out, 0, sizeof(uint32_t) * num_words * static_cast<size_t>(num_rows),
       st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = grid_for(num_entries);
+  const dim3 grid(grid_for(per_image, images), images);
   const int num_tiles = (num_entries + kScanTile - 1) / kScanTile;
-  count_kernel<<<grid, kThreads, 0, st>>>(z, num_entries, epi, live_entries,
-                                          hv, init_dc, dc_lut, ac_lut,
+  count_kernel<<<grid, kThreads, 0, st>>>(z, per_image, epi, live_entries, hv,
+                                          init_dc, dc_lut, ac_lut, lut_stride,
                                           entry_bits);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   scan_tiles_kernel<<<num_tiles, kScanThreads, 0, st>>>(entry_bits,
@@ -388,13 +423,14 @@ extern "C" int jt_entropy_encode(const int16_t* z, int num_entries, int epi,
   scan_tile_sums_kernel<<<1, kScanThreads, 0, st>>>(tile_sums, num_tiles,
                                                     total_bits);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  interval_bits_kernel<<<(num_intervals + 255) / 256, 256, 0, st>>>(
-      entry_bits, tile_sums, total_bits, num_entries, epi, num_intervals,
-      interval_bits);
+  interval_bits_kernel<<<(num_rows + 255) / 256, 256, 0, st>>>(
+      entry_bits, tile_sums, total_bits, num_entries, per_image, epi, n_int,
+      num_rows, interval_bits);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   if (live_entries == 0) return 0;
-  write_kernel<<<grid_for(live_entries), kThreads, 0, st>>>(
-      z, num_entries, epi, live_entries, hv, init_dc, dc_lut, ac_lut,
-      entry_bits, tile_sums, out, num_words);
+  write_kernel<<<dim3(grid_for(live_entries, images), images), kThreads, 0,
+                 st>>>(z, per_image, epi, n_int, live_entries, hv, init_dc,
+                       dc_lut, ac_lut, lut_stride, entry_bits, tile_sums, out,
+                       num_words);
   return static_cast<int>(cudaGetLastError());
 }

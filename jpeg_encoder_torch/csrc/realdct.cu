@@ -26,6 +26,14 @@
 // written, so it is compute-bound on the FP32 pipes, and fused multiply-adds
 // (which would halve the instruction count) are forbidden by the exactness
 // contract.
+//
+// The per-block tier (kernel K6a, jt_realdct_blocks) replaces
+// dct_pallas.py::real_dct_quant_zigzag_pallas (body _realdct_kernel) and
+// its transposed forms real_dct_quant_zigzag_pallas_t (K6b: the same
+// function in two Mosaic layouts, bit-identical). It takes (N, 64) u8
+// blocks, contiguous, with one quantization row for the whole call (luma or
+// chroma), and writes (N, 64) int32; the chain is K1's own device code
+// (realdct_coeff), so the two agree bit for bit by construction.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +42,32 @@ namespace {
 
 constexpr int kBlocksPerGroup = 4;           // 8x8 blocks per CTA iteration
 constexpr int kThreads = 64 * kBlocksPerGroup;
+
+// Zigzag coefficient j's 64 per-step factors, kept in registers.
+__device__ __forceinline__ void load_factors(const float* __restrict__ a_steps,
+                                             const float* __restrict__ b_steps,
+                                             int j, float (&a)[64],
+                                             float (&b)[64]) {
+#pragma unroll
+  for (int k = 0; k < 64; ++k) {
+    a[k] = a_steps[k * 64 + j];
+    b[k] = b_steps[k * 64 + j];
+  }
+}
+
+// One quantized coefficient: the ordered chain over a block's 64
+// level-shifted pixels px (shared memory), each operation rounded once.
+__device__ __forceinline__ int realdct_coeff(const float* px,
+                                             const float (&a)[64],
+                                             const float (&b)[64], float sc,
+                                             float q) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 64; ++k) {
+    acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(px[k], a[k]), b[k]));
+  }
+  return static_cast<int>(truncf(__fdiv_rn(__fmul_rn(sc, acc), q)));
+}
 
 __global__ void __launch_bounds__(kThreads)
 realdct_planes_kernel(const uint8_t* __restrict__ y, int y_width, int ny,
@@ -51,11 +85,7 @@ realdct_planes_kernel(const uint8_t* __restrict__ y, int y_width, int ny,
   const int n_total = ny + 2 * nc;
 
   float a[64], b[64];
-#pragma unroll
-  for (int k = 0; k < 64; ++k) {
-    a[k] = a_steps[k * 64 + j];
-    b[k] = b_steps[k * 64 + j];
-  }
+  load_factors(a_steps, b_steps, j, a, b);
   const float sc = scale[j];
   const float ql = q_luma[j];
   const float qc = q_chroma[j];
@@ -84,17 +114,52 @@ realdct_planes_kernel(const uint8_t* __restrict__ y, int y_width, int ny,
     px[s][j] = v;
     __syncthreads();
     if (n < n_total) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 64; ++k) {
-        acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(px[s][k], a[k]), b[k]));
-      }
-      const float q = n < ny ? ql : qc;
-      const float c = __fdiv_rn(__fmul_rn(sc, acc), q);
-      out[static_cast<size_t>(n) * 64 + j] = static_cast<int16_t>(truncf(c));
+      out[static_cast<size_t>(n) * 64 + j] =
+          static_cast<int16_t>(realdct_coeff(px[s], a, b, sc, n < ny ? ql : qc));
     }
     __syncthreads();
   }
+}
+
+// K6a/b: the same chain over (n, 64) contiguous blocks, one q row.
+__global__ void __launch_bounds__(kThreads)
+realdct_blocks_kernel(const uint8_t* __restrict__ blocks, int n,
+                      const float* __restrict__ a_steps,
+                      const float* __restrict__ b_steps,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ q_row,
+                      int32_t* __restrict__ out) {
+  __shared__ float px[kBlocksPerGroup][64];
+  const int j = threadIdx.x & 63;
+  const int s = threadIdx.x >> 6;
+  float a[64], b[64];
+  load_factors(a_steps, b_steps, j, a, b);
+  const float sc = scale[j];
+  const float q = q_row[j];
+  const int groups = (n + kBlocksPerGroup - 1) / kBlocksPerGroup;
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int nb = g * kBlocksPerGroup + s;
+    // Thread (s, j) loads pixel j of block nb: 256 contiguous bytes a CTA.
+    px[s][j] = nb < n ? static_cast<float>(
+                            blocks[static_cast<size_t>(nb) * 64 + j]) - 128.0f
+                      : 0.0f;
+    __syncthreads();
+    if (nb < n) {
+      out[static_cast<size_t>(nb) * 64 + j] = realdct_coeff(px[s], a, b, sc, q);
+    }
+    __syncthreads();
+  }
+}
+
+int grid_for(int n_blocks, int* grid) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = (n_blocks + kBlocksPerGroup - 1) / kBlocksPerGroup;
+  *grid = groups < 8 * sms ? groups : 8 * sms;
+  return 0;
 }
 
 }  // namespace
@@ -110,16 +175,27 @@ extern "C" int jt_realdct_planes(const uint8_t* y, int y_width, int ny,
                                  int16_t* out, void* stream) {
   const int n_total = ny + 2 * nc;
   if (n_total == 0) return 0;
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = (n_total + kBlocksPerGroup - 1) / kBlocksPerGroup;
-  const int grid = groups < 8 * sms ? groups : 8 * sms;
+  int grid = 0;
+  if (const int err = grid_for(n_total, &grid)) return err;
   realdct_planes_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       y, y_width, ny, cb, cr, c_width, nc, a_steps, b_steps, scale, q_luma,
       q_chroma, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blocks: (n, 64) u8, contiguous. q_row: (64,) f32 zigzag quantization row
+// (luma or chroma, scaled to the quality). out: (n, 64) int32, zigzag.
+// Returns the launch's cudaError_t (0 on success).
+extern "C" int jt_realdct_blocks(const uint8_t* blocks, int n,
+                                 const float* a_steps, const float* b_steps,
+                                 const float* scale, const float* q_row,
+                                 int32_t* out, void* stream) {
+  if (n == 0) return 0;
+  int grid = 0;
+  if (const int err = grid_for(n, &grid)) return err;
+  realdct_blocks_kernel<<<grid, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      blocks, n, a_steps, b_steps, scale, q_row, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -118,22 +118,27 @@ def load(name: str) -> ctypes.CDLL:
 
 @dataclasses.dataclass(eq=False)
 class Kernel:
-    """One kernel: its source csrc/<name>.cu, the C entry point it exports,
-    the TPU kernel it replaces, and its launch count."""
+    """One kernel: its source csrc/<lib>.cu (lib defaults to the name; one
+    source may export several entries), the C entry point it exports, the
+    TPU kernel it replaces, and its launch count."""
 
     name: str
     symbol: str
     argtypes: tuple
     replaces: str  # file:line of the Pallas kernel in jpeg_encoder_tpu
+    lib: str = ""
     launches: int = 0  # since the last reset; the CPU path does not count
+
+    def __post_init__(self) -> None:
+        self.lib = self.lib or self.name
 
     @property
     def source(self) -> str:
-        return f"jpeg_encoder_torch/csrc/{self.name}.cu"
+        return f"jpeg_encoder_torch/csrc/{self.lib}.cu"
 
     @functools.cached_property
     def _fn(self):
-        fn = getattr(load(self.name), self.symbol)
+        fn = getattr(load(self.lib), self.symbol)
         fn.argtypes = list(self.argtypes)
         fn.restype = ctypes.c_int
         return fn

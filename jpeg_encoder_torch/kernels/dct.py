@@ -5,13 +5,20 @@
 - K2 FASTDCT (csrc/fastdct.cu) replaces the same entry with fast=True
   (the --fast-dct matmul body);
 - K3 BINDCT (csrc/bindct.cu) replaces
-  dct_pallas.py::bin_dct_quant_planes_zigzag_pallas_t.
+  dct_pallas.py::bin_dct_quant_planes_zigzag_pallas_t;
+- the per-block tier: REALDCT_BLOCKS (csrc/realdct.cu, jt_realdct_blocks)
+  replaces dct_pallas.py::real_dct_quant_zigzag_pallas (K6a) and its
+  transposed forms real_dct_quant_zigzag_pallas_t (K6b, the same function
+  in two TPU layouts), and BINDCT_BLOCKS (csrc/bindct.cu,
+  jt_bindct_blocks) replaces dct_pallas.py::bin_dct_quant_zigzag_pallas
+  (K6c). They share K1's and K3's device code.
 
 On CUDA tensors each wrapper launches its hand-written kernel or raises; on
 CPU tensors it runs the plain PyTorch version in ops/dct.py, which is the
-kernel's spec. All three take three padded uint8 planes [Y, Cb, Cr] and
-return (N_i, 64) int16 zigzag coefficients, on CUDA as row views of one
-(N, 64) tensor.
+kernel's spec. The plane kernels take three padded uint8 planes [Y, Cb,
+Cr] and return (N_i, 64) int16 zigzag coefficients, on CUDA as row views of
+one (N, 64) tensor; the per-block ones take (N, 64) uint8 blocks and
+is_luma and return (N, 64) int32.
 """
 
 from __future__ import annotations
@@ -37,6 +44,15 @@ BINDCT = Kernel(
     "bindct", "jt_bindct_planes",
     (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P),
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:568",
+)
+# K6a (:80); K6b (dct_pallas.py:156) computes the same function.
+REALDCT_BLOCKS = Kernel(
+    "realdct_blocks", "jt_realdct_blocks", (_P, _I) + (_P,) * 6,
+    replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:80", lib="realdct",
+)
+BINDCT_BLOCKS = Kernel(
+    "bindct_blocks", "jt_bindct_blocks", (_P, _I, _P, _P, _P),
+    replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:714", lib="bindct",
 )
 
 
@@ -147,4 +163,65 @@ def bin_dct_quant_planes_zigzag(
         BINDCT, y_plane, cb_plane, cr_plane,
         q_luma.data_ptr(), q_chroma.data_ptr(), gains.data_ptr(),
         int(descale),
+    )
+
+
+def _check_blocks(blocks: torch.Tensor) -> None:
+    if blocks.dtype != torch.uint8 or blocks.dim() != 2 or (
+        blocks.shape[1] != 64
+    ):
+        raise ValueError(
+            f"blocks must be (N, 64) uint8, got {blocks.dtype} "
+            f"{tuple(blocks.shape)}"
+        )
+    if not blocks.is_contiguous():
+        raise ValueError("blocks must be contiguous")
+    if blocks.device.type == "cuda" and blocks.data_ptr() % 16:
+        raise ValueError("blocks must be 16-byte aligned")
+    if blocks.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {blocks.device}")
+
+
+def _launch_blocks(kernel: Kernel, blocks: torch.Tensor, *operands):
+    out = torch.empty(blocks.shape, dtype=torch.int32, device=blocks.device)
+    with torch.cuda.device(blocks.device):
+        kernel.launch(
+            blocks.data_ptr(), blocks.shape[0], *operands, out.data_ptr(),
+            torch.cuda.current_stream(blocks.device).cuda_stream,
+        )
+    return out
+
+
+def real_dct_quant_zigzag(
+    blocks: torch.Tensor, is_luma: bool, quality: int | None = None
+) -> torch.Tensor:
+    """K6a/b: (N, 64) uint8 blocks, all luma or all chroma -> (N, 64) int32
+    zigzag RealDCT coefficients, bit-identical to
+    ops/dct.real_dct_quant_zigzag (and to K1 on the same blocks)."""
+    _check_blocks(blocks)
+    if blocks.device.type == "cpu":
+        return dct_ops.real_dct_quant_zigzag(blocks, is_luma, quality)
+    a_steps, b_steps, scale, q_luma, q_chroma = dct_ops.device_constants(
+        quality, blocks.device
+    )
+    return _launch_blocks(
+        REALDCT_BLOCKS, blocks, a_steps.data_ptr(), b_steps.data_ptr(),
+        scale.data_ptr(), (q_luma if is_luma else q_chroma).data_ptr(),
+    )
+
+
+def bin_dct_quant_zigzag(
+    blocks: torch.Tensor, is_luma: bool, quality: int | None = None
+) -> torch.Tensor:
+    """K6c: (N, 64) uint8 blocks, all luma or all chroma -> (N, 64) int32
+    zigzag bug-parity binDCT coefficients, bit-identical to
+    ops/dct.bin_dct_quant_zigzag (and to K3 on the same blocks)."""
+    _check_blocks(blocks)
+    if blocks.device.type == "cpu":
+        return dct_ops.bin_dct_quant_zigzag(blocks, is_luma, quality)
+    q_luma, q_chroma, _ = dct_ops.bindct_device_constants(
+        quality, blocks.device
+    )
+    return _launch_blocks(
+        BINDCT_BLOCKS, blocks, (q_luma if is_luma else q_chroma).data_ptr(),
     )

@@ -6,7 +6,9 @@ On CUDA tensors the wrapper launches the hand-written three-pass kernel
 symbolizer and packer of ops/entropy.py, which is the kernel's spec. The
 Huffman tables are operands, so per-image optimized tables need no new
 kernel. One launch codes the unbroken scan or every restart interval of a
-restart-framed one (the TPU kernel under vmap), each into its own row.
+restart-framed one (the TPU kernel under vmap), each into its own row, and
+the same for every image of a batch, with one table pair for all images or
+one an image.
 """
 
 from __future__ import annotations
@@ -15,29 +17,32 @@ import ctypes
 
 import torch
 
-from jpeg_encoder_tpu.config import FrameGeometry
+from jpeg_encoder_torch.config import FrameGeometry
 from jpeg_encoder_torch.kernels._build import Kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTROPY = Kernel(
     "entropy", "jt_entropy_encode",
-    (_P, _I, _I, _I, _I) + (_P,) * 8 + (_I, _P),
+    (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I) + (_P,) * 5 + (_I, _P),
     replaces="jpeg_encoder_tpu/kernels/entropy_pallas.py:570",
 )
 _SCAN_TILE = 4096  # entries per scan tile (kScanTile in entropy.cu)
+# The kernel's bit offsets are int32 and one scan spans the whole batch.
+OFFSET_LIMIT_BITS = 2**31
 
 
-def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> None:
-    if entropy_ops.worst_case_capacity_bytes(geom) * 8 >= 2**31:
+def worst_case_bits(geom: FrameGeometry) -> int:
+    """One image's worst-case scan length in bits."""
+    return geom.num_scan_entries * entropy_ops.WORST_CASE_BITS_PER_ENTRY
+
+
+def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> int:
+    """Raise on what the kernel does not take; -> the number of images."""
+    if worst_case_bits(geom) >= OFFSET_LIMIT_BITS:
         raise ValueError(
             f"{geom.width}x{geom.height}: the worst-case bit count does not "
             "fit the kernel's int32 offsets"
-        )
-    if capacity_bytes <= 0 or capacity_bytes % 4:
-        raise ValueError(
-            "capacity_bytes must be a positive multiple of 4, got "
-            f"{capacity_bytes}"
         )
     if z.dtype != torch.int16 or z.dim() != 2 or z.shape[1] != 64:
         raise ValueError(
@@ -45,12 +50,30 @@ def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> None:
         )
     if z.shape[0] == 0:
         raise ValueError("z has no entries")
-    if z.shape[0] != geom.num_scan_entries:
+    per_image = geom.num_scan_entries
+    if z.shape[0] % per_image:
         raise ValueError(
-            f"z has {z.shape[0]} entries, the geometry {geom.num_scan_entries}"
+            f"z has {z.shape[0]} entries, not a whole number of the "
+            f"geometry's {per_image}"
+        )
+    images = z.shape[0] // per_image
+    if images * worst_case_bits(geom) >= OFFSET_LIMIT_BITS:
+        raise ValueError(
+            f"{images} images of {geom.width}x{geom.height}: their worst-case "
+            "bit count does not fit the kernel's int32 offsets"
+        )
+    if capacity_bytes <= 0 or capacity_bytes % 4:
+        raise ValueError(
+            "capacity_bytes must be a positive multiple of 4, got "
+            f"{capacity_bytes}"
         )
     if not z.is_contiguous() or z.data_ptr() % 4:
         raise ValueError("z must be contiguous and 4-byte aligned")
+    if images > 1 and epi is None:
+        raise ValueError(
+            "a batch needs entries_per_interval (the geometry's "
+            "num_scan_entries for one unbroken scan an image)"
+        )
     if epi is not None:
         if epi <= 0 or epi % geom.blocks_per_mcu:
             raise ValueError(
@@ -60,7 +83,7 @@ def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> None:
         if init_dc is not None and epi < z.shape[0]:
             raise ValueError(
                 "init_dc seeds one unbroken scan; the DC predictors of "
-                "restart intervals start from 0"
+                "restart intervals and of a batch's images start from 0"
             )
     if init_dc is not None and (
         init_dc.shape != (3,) or init_dc.device != z.device
@@ -68,10 +91,15 @@ def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> None:
         raise ValueError("init_dc must be a (3,) tensor on z's device")
     if luts is not None:
         for t in luts:
-            if t.shape != (2, 256) or t.device != z.device:
+            if t.shape not in ((2, 256), (images, 2, 256)) or (
+                t.shape != luts[0].shape or t.device != z.device
+            ):
                 raise ValueError(
-                    "luts must be two (2, 256) tensors on z's device"
+                    "luts must be two (2, 256) tensors, or two "
+                    f"({images}, 2, 256) tensors of per-image tables, on "
+                    "z's device"
                 )
+    return images
 
 
 def encode_entries(
@@ -94,9 +122,15 @@ def encode_entries(
     code each run of that many entries as its own restart interval and
     return (bytes (n_int, capacity_bytes), bits (n_int,)), capacity_bytes
     per interval.
+
+    A batch: z holds B images' entries, B * geom.num_scan_entries rows
+    (parallel/batch.py), and needs entries_per_interval; the intervals
+    restart at every image, so the result has n_int rows an image, image
+    by image, and live_entries counts within each image. luts may then be
+    (B, 2, 256) each, one table pair an image.
     """
     epi = entries_per_interval
-    _check_operands(z, geom, capacity_bytes, init_dc, luts, epi)
+    images = _check_operands(z, geom, capacity_bytes, init_dc, luts, epi)
     device = z.device
     if device.type == "cpu":
         return entropy_ops.encode_entries(
@@ -110,32 +144,35 @@ def encode_entries(
     if luts is None:
         luts = entropy_ops.device_luts(device)
     dc_lut, ac_lut = luts
+    lut_stride = 512 if dc_lut.dim() == 3 else 0
     init_dc = init_dc.to(torch.int32).contiguous()
     dc_lut = dc_lut.to(torch.int32).contiguous()
     ac_lut = ac_lut.to(torch.int32).contiguous()
     num_entries = z.shape[0]
-    live = num_entries if live_entries is None else live_entries
-    live = min(max(int(live), 0), num_entries)
-    n_int = 1 if epi is None else -(-num_entries // epi)
+    per_image = geom.num_scan_entries
+    live = per_image if live_entries is None else live_entries
+    live = min(max(int(live), 0), per_image)
+    epi = epi or per_image
+    n_rows = images * -(-per_image // epi)
     num_words = capacity_bytes // 4
     entry_bits = torch.empty(num_entries, dtype=torch.int32, device=device)
     tile_sums = torch.empty(
         -(-num_entries // _SCAN_TILE), dtype=torch.int32, device=device
     )
     total_bits = torch.empty(1, dtype=torch.int32, device=device)
-    bits = torch.empty(n_int, dtype=torch.int32, device=device)
-    words = torch.empty((n_int, num_words), dtype=torch.int32, device=device)
+    bits = torch.empty(n_rows, dtype=torch.int32, device=device)
+    words = torch.empty((n_rows, num_words), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         ENTROPY.launch(
-            z.data_ptr(), num_entries, epi or num_entries, live,
+            z.data_ptr(), num_entries, per_image, epi, live,
             geom.h_factor * geom.v_factor, init_dc.data_ptr(),
-            dc_lut.data_ptr(), ac_lut.data_ptr(), entry_bits.data_ptr(),
-            tile_sums.data_ptr(), total_bits.data_ptr(), bits.data_ptr(),
-            words.data_ptr(), num_words,
+            dc_lut.data_ptr(), ac_lut.data_ptr(), lut_stride,
+            entry_bits.data_ptr(), tile_sums.data_ptr(), total_bits.data_ptr(),
+            bits.data_ptr(), words.data_ptr(), num_words,
             torch.cuda.current_stream(device).cuda_stream,
         )
     # The kernel stores byte-swapped words: their bytes are the stream.
     data = words.view(torch.uint8)
-    if epi is None:
+    if entries_per_interval is None:
         return data[0], bits[0]
     return data, bits

@@ -1,0 +1,313 @@
+// Native host runtime: BMP ingest, JFIF byte stuffing, bitstream splicing.
+//
+// The reference implements its entire host path natively (Rust):
+//   - BMP reader        src/bmp/bmp_image.rs   (header at offsets 10/18/22,
+//                       bottom-up 24-bit BGR rows padded to 4 bytes)
+//   - scan byte output  src/jpeg/file.rs:92-103 (0xFF -> 0xFF 0x00 stuffing)
+//   - bit accumulation  src/utils/bitvec_utils.rs
+// This library is the TPU build's native equivalent of those host-side
+// components; the device compute path stays JAX/XLA/Pallas. Exposed as a
+// C ABI consumed via ctypes (jpeg_encoder_torch/native/__init__.py), with
+// NumPy fallbacks kept for environments without a C++ toolchain.
+//
+// Error codes: 0 = ok, negative = validation failure (see JT_ERR_*).
+
+#include <atomic>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#define JT_ERR_MAGIC -1      // missing 'BM' magic / file too short
+#define JT_ERR_BPP -2        // not 24-bit
+#define JT_ERR_DIMS -3       // non-positive or absurd dimensions
+#define JT_ERR_TRUNCATED -4  // pixel data shorter than header promises
+#define JT_ERR_CAPACITY -5   // output buffer too small
+
+namespace {
+
+constexpr int64_t kHeaderSize = 54;
+
+inline uint32_t read_u32le(const uint8_t* p) {
+  return static_cast<uint32_t>(p[0]) | (static_cast<uint32_t>(p[1]) << 8) |
+         (static_cast<uint32_t>(p[2]) << 16) |
+         (static_cast<uint32_t>(p[3]) << 24);
+}
+
+inline int32_t read_i32le(const uint8_t* p) {
+  return static_cast<int32_t>(read_u32le(p));
+}
+
+inline void write_u32le(uint8_t* p, uint32_t v) {
+  p[0] = static_cast<uint8_t>(v);
+  p[1] = static_cast<uint8_t>(v >> 8);
+  p[2] = static_cast<uint8_t>(v >> 16);
+  p[3] = static_cast<uint8_t>(v >> 24);
+}
+
+inline int64_t row_stride(int64_t width) { return (width * 3 + 3) / 4 * 4; }
+
+}  // namespace
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// BMP (bmp_image.rs parity: offsets 10/18/22, 24bpp, bottom-up BGR)
+// ---------------------------------------------------------------------------
+
+int jt_bmp_probe(const uint8_t* buf, int64_t len, int32_t* width,
+                 int32_t* height, int64_t* data_offset, int32_t* bpp) {
+  if (len < kHeaderSize || buf[0] != 'B' || buf[1] != 'M') return JT_ERR_MAGIC;
+  *data_offset = static_cast<int64_t>(read_u32le(buf + 10));
+  *width = read_i32le(buf + 18);
+  *height = read_i32le(buf + 22);
+  *bpp = static_cast<int32_t>(buf[28]) | (static_cast<int32_t>(buf[29]) << 8);
+  if (*bpp != 24) return JT_ERR_BPP;
+  if (*width <= 0 || *height <= 0 || *width > 1 << 24 || *height > 1 << 24)
+    return JT_ERR_DIMS;
+  if (*data_offset + row_stride(*width) * *height > len) return JT_ERR_TRUNCATED;
+  return 0;
+}
+
+// Decode into out (H*W*3 bytes, top-to-bottom RGB). Caller probes first to
+// size the buffer; dims are re-validated here.
+int jt_bmp_decode_rgb(const uint8_t* buf, int64_t len, uint8_t* out) {
+  int32_t w, h, bpp;
+  int64_t off;
+  int rc = jt_bmp_probe(buf, len, &w, &h, &off, &bpp);
+  if (rc != 0) return rc;
+  const int64_t stride = row_stride(w);
+  for (int64_t y = 0; y < h; ++y) {
+    // Bottom-up storage: output row y comes from stored row (h-1-y).
+    const uint8_t* src = buf + off + (h - 1 - y) * stride;
+    uint8_t* dst = out + y * static_cast<int64_t>(w) * 3;
+    for (int64_t x = 0; x < w; ++x) {
+      dst[3 * x + 0] = src[3 * x + 2];  // B,G,R -> R,G,B
+      dst[3 * x + 1] = src[3 * x + 1];
+      dst[3 * x + 2] = src[3 * x + 0];
+    }
+  }
+  return 0;
+}
+
+int64_t jt_bmp_encoded_size(int32_t width, int32_t height) {
+  return kHeaderSize + row_stride(width) * height;
+}
+
+// (H, W, 3) top-to-bottom RGB -> complete 24-bit BMP file bytes.
+int jt_bmp_encode_rgb(const uint8_t* rgb, int32_t width, int32_t height,
+                      uint8_t* out, int64_t out_len) {
+  if (width <= 0 || height <= 0) return JT_ERR_DIMS;
+  const int64_t stride = row_stride(width);
+  const int64_t file_size = kHeaderSize + stride * height;
+  if (out_len < file_size) return JT_ERR_CAPACITY;
+  std::memset(out, 0, kHeaderSize);
+  out[0] = 'B';
+  out[1] = 'M';
+  write_u32le(out + 2, static_cast<uint32_t>(file_size));
+  write_u32le(out + 10, kHeaderSize);
+  write_u32le(out + 14, 40);                              // BITMAPINFOHEADER
+  write_u32le(out + 18, static_cast<uint32_t>(width));
+  write_u32le(out + 22, static_cast<uint32_t>(height));
+  out[26] = 1;                                            // planes
+  out[28] = 24;                                           // bpp
+  write_u32le(out + 34, static_cast<uint32_t>(stride * height));
+  write_u32le(out + 38, 2835);  // 72 dpi, matching the Python writer
+  write_u32le(out + 42, 2835);
+  for (int64_t y = 0; y < height; ++y) {
+    const uint8_t* src = rgb + (height - 1 - y) * static_cast<int64_t>(width) * 3;
+    uint8_t* dst = out + kHeaderSize + y * stride;
+    for (int64_t x = 0; x < width; ++x) {
+      dst[3 * x + 0] = src[3 * x + 2];
+      dst[3 * x + 1] = src[3 * x + 1];
+      dst[3 * x + 2] = src[3 * x + 0];
+    }
+    std::memset(dst + width * 3, 0, stride - width * 3);
+  }
+  return 0;
+}
+
+// Threaded batch ingest (the "data loader"): decode n same-sized BMP
+// buffers into one contiguous (n, H, W, 3) array. Returns 0, or the first
+// per-file error. The reference reads 3 bytes per read() syscall
+// (bmp_image.rs:72); this saturates host memory bandwidth instead.
+int jt_bmp_decode_batch(const uint8_t* const* bufs, const int64_t* lens,
+                        int32_t n, int32_t width, int32_t height,
+                        uint8_t* out, int32_t num_threads) {
+  if (n <= 0) return 0;
+  const int64_t image_bytes =
+      static_cast<int64_t>(width) * height * 3;
+  if (num_threads <= 0)
+    num_threads = static_cast<int32_t>(std::thread::hardware_concurrency());
+  if (num_threads <= 0) num_threads = 1;
+  if (num_threads > n) num_threads = n;
+
+  std::atomic<int32_t> next(0);
+  std::atomic<int> status(0);
+  auto worker = [&]() {
+    for (;;) {
+      const int32_t i = next.fetch_add(1);
+      if (i >= n || status.load() != 0) return;
+      int32_t w, h, bpp;
+      int64_t off;
+      int rc = jt_bmp_probe(bufs[i], lens[i], &w, &h, &off, &bpp);
+      if (rc == 0 && (w != width || h != height)) rc = JT_ERR_DIMS;
+      if (rc == 0) rc = jt_bmp_decode_rgb(bufs[i], lens[i], out + i * image_bytes);
+      if (rc != 0) status.store(rc);
+    }
+  };
+  std::vector<std::thread> pool;
+  pool.reserve(num_threads);
+  for (int32_t t = 0; t < num_threads; ++t) pool.emplace_back(worker);
+  for (auto& t : pool) t.join();
+  return status.load();
+}
+
+// ---------------------------------------------------------------------------
+// Scan payload byte stuffing (file.rs:92-103): 0xFF -> 0xFF 0x00
+// ---------------------------------------------------------------------------
+
+// out must hold 2*n bytes; returns the stuffed length.
+int64_t jt_stuff_bytes(const uint8_t* in, int64_t n, uint8_t* out) {
+  int64_t j = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    const uint8_t b = in[i];
+    out[j++] = b;
+    if (b == 0xFF) out[j++] = 0x00;
+  }
+  return j;
+}
+
+// ---------------------------------------------------------------------------
+// Optimal Huffman table construction (ITU-T T.81 Annex K.2/K.3)
+// ---------------------------------------------------------------------------
+
+// Exact port of tables.optimal_spec (the Python/NumPy implementation stays
+// the behavioral spec; an A/B test asserts identity over fuzzed
+// histograms). The per-image optimized-Huffman mode builds 4 tables per
+// image on the host between the device stats and encode passes — the
+// Python merge loop costs ~2 ms/table, which at batch rates would dominate
+// the mode (tools/bench_cell.py optimize); this runs in ~30 us.
+//
+// freq: 256 symbol counts. bits_out: 16 code-length counts. symbols_out:
+// up to 256 symbols in (code length, value) order. *nsym_out: symbol
+// count. Returns 0, or JT_ERR_DIMS when a code size exceeds the working
+// array (unreachable for real histograms; the Fibonacci depth bound keeps
+// sizes < 50 even for 2^32 total counts).
+int jt_optimal_huffman(const int64_t* freq, uint8_t* bits_out,
+                       uint8_t* symbols_out, int32_t* nsym_out) {
+  int64_t counts[257];
+  int32_t codesize[257];
+  int32_t others[257];
+  for (int v = 0; v < 256; ++v) counts[v] = freq[v];
+  counts[256] = 1;  // reserved: claims the all-ones code (F.1.4.5)
+  for (int v = 0; v < 257; ++v) {
+    codesize[v] = 0;
+    others[v] = -1;
+  }
+
+  for (;;) {
+    // Least count, ties toward the LARGEST value (K.2), twice.
+    int v1 = -1, v2 = -1;
+    for (int v = 0; v < 257; ++v) {
+      if (counts[v] <= 0) continue;
+      if (v1 < 0 || counts[v] < counts[v1] ||
+          (counts[v] == counts[v1] && v > v1))
+        v1 = v;
+    }
+    for (int v = 0; v < 257; ++v) {
+      if (counts[v] <= 0 || v == v1) continue;
+      if (v2 < 0 || counts[v] < counts[v2] ||
+          (counts[v] == counts[v2] && v > v2))
+        v2 = v;
+    }
+    if (v2 < 0) break;  // fewer than two active values
+
+    counts[v1] += counts[v2];
+    counts[v2] = 0;
+    codesize[v1] += 1;
+    while (others[v1] != -1) {
+      v1 = others[v1];
+      codesize[v1] += 1;
+    }
+    others[v1] = v2;
+    codesize[v2] += 1;
+    while (others[v2] != -1) {
+      v2 = others[v2];
+      codesize[v2] += 1;
+    }
+  }
+
+  constexpr int kBits = 60;  // matches the Python working-array bound
+  int32_t bits[kBits];
+  std::memset(bits, 0, sizeof(bits));
+  for (int v = 0; v < 257; ++v) {
+    if (codesize[v] <= 0) continue;
+    if (codesize[v] > kBits) return JT_ERR_DIMS;
+    bits[codesize[v] - 1] += 1;
+  }
+  // Fold sizes > 16 down (figure K.3 verbatim).
+  for (int i = kBits - 1; i >= 16; --i) {
+    while (bits[i] > 0) {
+      int j = i - 2;
+      while (bits[j] == 0) --j;
+      bits[i] -= 2;
+      bits[i - 1] += 1;
+      bits[j + 1] += 2;
+      bits[j] -= 1;
+    }
+  }
+  // Remove the reserved symbol's code from the longest used length.
+  {
+    int i = 15;
+    while (i > 0 && bits[i] == 0) --i;
+    if (bits[i] > 0) bits[i] -= 1;
+  }
+  for (int i = 0; i < 16; ++i) bits_out[i] = static_cast<uint8_t>(bits[i]);
+
+  // Symbols in (code length, value) order.
+  int32_t n = 0;
+  for (int len = 1; len <= kBits; ++len)
+    for (int v = 0; v < 256; ++v)
+      if (codesize[v] == len) symbols_out[n++] = static_cast<uint8_t>(v);
+  *nsym_out = n;
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
+// Bit-level splice of byte-aligned shard bitstreams (utils/bits.py parity)
+// ---------------------------------------------------------------------------
+
+// Each stream i holds ceil(bit_lengths[i] / 8) valid bytes, MSB-first, with
+// bits past bit_lengths[i] zero. out must hold ceil(sum(bits) / 8) bytes and
+// be zero-initialized by the caller. Returns the total bit count.
+int64_t jt_splice_bits(const uint8_t* const* streams, const int64_t* bit_lengths,
+                       int32_t n, uint8_t* out) {
+  int64_t offset = 0;
+  for (int32_t s = 0; s < n; ++s) {
+    const int64_t nbits = bit_lengths[s];
+    if (nbits == 0) continue;
+    const uint8_t* src = streams[s];
+    const int64_t nbytes = (nbits + 7) / 8;
+    const int64_t pos = offset >> 3;
+    const int k = static_cast<int>(offset & 7);
+    if (k == 0) {
+      for (int64_t i = 0; i < nbytes; ++i) out[pos + i] |= src[i];
+    } else {
+      // Shift the stream right by k bits while OR-ing into the output.
+      uint8_t carry = out[pos];
+      for (int64_t i = 0; i < nbytes; ++i) {
+        const uint8_t b = src[i];
+        out[pos + i] = carry | static_cast<uint8_t>(b >> k);
+        carry = static_cast<uint8_t>(b << (8 - k));
+      }
+      // The final carry only lands if the shifted stream spills a byte;
+      // otherwise it is all zeros (stream bits past nbits are zero).
+      if ((k + nbits + 7) / 8 > nbytes) out[pos + nbytes] = carry;
+    }
+    offset += nbits;
+  }
+  return offset;
+}
+
+}  // extern "C"

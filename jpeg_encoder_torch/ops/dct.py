@@ -1,10 +1,14 @@
-"""DCT + quantization of three padded planes (the plain paths).
+"""DCT + quantization of three padded planes, or of (N, 64) blocks (the
+plain paths).
 
 The CPU path and the specs of the CUDA kernels in kernels/dct.py: the
 exact RealDCT (K1), the --fast-dct matmul RealDCT (K2) and the binDCT-C
 lifting transform (K3), each with the three-plane luma/chroma quant select
 of jpeg_encoder_tpu/ops/dct.py::dct_quantize_planes (:120-177). All return
-(N_i, 64) int16 zigzag coefficients [Y, Cb, Cr].
+(N_i, 64) int16 zigzag coefficients [Y, Cb, Cr]. The per-block tier (K6a/b
+and K6c: (N, 64) uint8 blocks and one luma/chroma choice -> (N, 64) int32
+zigzag coefficients) runs the same per-block cores, real_dct_quant_blocks
+and bin_dct_quant_blocks, that the plane functions run.
 
 Exact RealDCT: port of ops/dct.py:180-224 (real_dct_quant_ordered). Per
 8x8 block, after the level shift, 64 float32 steps in (x, y) scan order
@@ -36,8 +40,7 @@ import functools
 import numpy as np
 import torch
 
-from jpeg_encoder_tpu import tables
-from jpeg_encoder_torch import constants
+from jpeg_encoder_torch import constants, tables
 from jpeg_encoder_torch.ops.sample import blockify
 
 
@@ -86,6 +89,20 @@ def _split(out: torch.Tensor, y_plane, cb_plane):
     return out[:ny], out[ny : ny + nc], out[ny + nc :]
 
 
+def real_dct_quant_blocks(
+    blocks: torch.Tensor, q: torch.Tensor, quality: int | None = None
+) -> torch.Tensor:
+    """The ordered chain on (N, 64) uint8 blocks with f32 quantization
+    rows q ((64,) or (N, 64), zigzag order) -> (N, 64) int32 zigzag
+    coefficients."""
+    a_steps, b_steps, scale, _, _ = device_constants(quality, blocks.device)
+    shifted = (blocks.to(torch.int16) - 128).to(torch.float32)
+    acc = torch.zeros_like(shifted)
+    for k in range(64):
+        acc = acc + (shifted[:, k : k + 1] * a_steps[k]) * b_steps[k]
+    return torch.trunc((scale * acc) / q).to(torch.int32)
+
+
 def real_dct_quant_planes_zigzag(
     y_plane: torch.Tensor,
     cb_plane: torch.Tensor,
@@ -95,17 +112,24 @@ def real_dct_quant_planes_zigzag(
     """Three padded (H, W) uint8 planes -> three (N_i, 64) int16 zigzag
     quantized coefficient arrays [Y, Cb, Cr]; luma blocks take the luma
     table, the rest the chroma table."""
-    a_steps, b_steps, scale, q_luma, q_chroma = device_constants(
-        quality, y_plane.device
-    )
+    *_, q_luma, q_chroma = device_constants(quality, y_plane.device)
     blocks, is_luma = _planes_to_blocks(y_plane, cb_plane, cr_plane)
-    shifted = (blocks.to(torch.int16) - 128).to(torch.float32)
-    acc = torch.zeros_like(shifted)
-    for k in range(64):
-        acc = acc + (shifted[:, k : k + 1] * a_steps[k]) * b_steps[k]
     q = torch.where(is_luma, q_luma, q_chroma)
-    out = torch.trunc((scale * acc) / q).to(torch.int16)
+    out = real_dct_quant_blocks(blocks, q, quality).to(torch.int16)
     return _split(out, y_plane, cb_plane)
+
+
+def real_dct_quant_zigzag(
+    blocks: torch.Tensor, is_luma: bool, quality: int | None = None
+) -> torch.Tensor:
+    """K6a/b: (N, 64) uint8 blocks, all luma or all chroma -> (N, 64)
+    int32 zigzag RealDCT coefficients (jpeg_encoder_tpu/kernels/
+    dct_pallas.py::real_dct_quant_zigzag_pallas and its transposed forms,
+    real_dct_quant_zigzag_pallas_t)."""
+    *_, q_luma, q_chroma = device_constants(quality, blocks.device)
+    return real_dct_quant_blocks(
+        blocks, q_luma if is_luma else q_chroma, quality
+    )
 
 
 def real_dct_fast_planes_zigzag(
@@ -157,6 +181,23 @@ def _zigzag(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tables.ZIGZAG_ORDER.astype(np.int64)).to(device)
 
 
+def bin_dct_quant_blocks(
+    blocks: torch.Tensor, q: torch.Tensor, gains: torch.Tensor | None = None
+) -> torch.Tensor:
+    """binDCT-C + quantization of (N, 64) uint8 blocks with int32
+    quantization rows q ((64,) or (N, 64), zigzag order) -> (N, 64) int32
+    zigzag coefficients. Without gains, the reference's bug-parity path
+    (raw lifting outputs divided by the table, integer division
+    truncating toward zero); with the (64,) f32 descale gains,
+    trunc((x * g) / q), in that float32 association."""
+    work = bin_dct_transform(blocks)[:, _zigzag(blocks.device)]
+    if gains is not None:
+        out = torch.trunc(work.to(torch.float32) * gains / q.to(torch.float32))
+    else:
+        out = torch.sign(work) * torch.div(work.abs(), q, rounding_mode="floor")
+    return out.to(torch.int32)
+
+
 def bin_dct_quant_planes_zigzag(
     y_plane: torch.Tensor,
     cb_plane: torch.Tensor,
@@ -164,18 +205,22 @@ def bin_dct_quant_planes_zigzag(
     quality: int | None = None,
     descale: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """binDCT-C + quantization. descale=False is the reference's
-    bug-parity path (raw lifting outputs divided by the table, integer
-    division truncating toward zero); descale=True folds the lifting
-    gains in as trunc((x * g) / q), in that float32 association."""
+    """binDCT-C + quantization of three padded planes, bug-parity or
+    descaled (bin_dct_quant_blocks)."""
     q_luma, q_chroma, gains = bindct_device_constants(
         quality, y_plane.device
     )
     blocks, is_luma = _planes_to_blocks(y_plane, cb_plane, cr_plane)
-    work = bin_dct_transform(blocks)[:, _zigzag(blocks.device)]
     q = torch.where(is_luma, q_luma, q_chroma)
-    if descale:
-        out = torch.trunc(work.to(torch.float32) * gains / q.to(torch.float32))
-    else:
-        out = torch.sign(work) * torch.div(work.abs(), q, rounding_mode="floor")
+    out = bin_dct_quant_blocks(blocks, q, gains if descale else None)
     return _split(out.to(torch.int16), y_plane, cb_plane)
+
+
+def bin_dct_quant_zigzag(
+    blocks: torch.Tensor, is_luma: bool, quality: int | None = None
+) -> torch.Tensor:
+    """K6c: (N, 64) uint8 blocks, all luma or all chroma -> (N, 64) int32
+    zigzag bug-parity binDCT coefficients (jpeg_encoder_tpu/kernels/
+    dct_pallas.py::bin_dct_quant_zigzag_pallas)."""
+    q_luma, q_chroma, _ = bindct_device_constants(quality, blocks.device)
+    return bin_dct_quant_blocks(blocks, q_luma if is_luma else q_chroma)

@@ -29,6 +29,12 @@ A restart-framed scan (T.81 E.2.4) is the same entry stream cut every
 packs into its own row from bit 0, and its DC predictors start at 0.
 `live_entries` makes the entries at index >= live_entries emit nothing.
 
+A batch (parallel/batch.py) is B images' entry streams one after another:
+`entries_per_image` (E) entries each, the intervals restarting at every
+image (an image's unbroken scan is one interval of E), one row per image
+and interval, live_entries counting within each image, and optionally one
+table pair per image.
+
 Bit arithmetic is int64 throughout: torch's uint32 shifts are thin. This
 is the CPU path and the spec for the CUDA kernels (kernels/entropy.py,
 kernels/pack.py).
@@ -42,9 +48,8 @@ import functools
 import numpy as np
 import torch
 
-from jpeg_encoder_tpu import oracle
-from jpeg_encoder_tpu.config import FrameGeometry
-from jpeg_encoder_torch import constants
+from jpeg_encoder_torch import constants, oracle
+from jpeg_encoder_torch.config import FrameGeometry
 
 # Upper bound on packed bits per scan entry (one 8x8 block): the DC slot
 # <= 11 + 11, 63 AC slots <= 16 + 10, the EOB <= 16; the JAX package's
@@ -103,10 +108,24 @@ def scan_layout(geom: FrameGeometry) -> ScanLayout:
 
 
 @functools.lru_cache(maxsize=64)
-def _entry_rows(geom: FrameGeometry, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(scan_layout(geom).entry_row.astype(np.int64)).to(
-        device
+def _entry_rows(
+    geom: FrameGeometry, batch: int, device: torch.device
+) -> torch.Tensor:
+    """Rows into [all Y | all Cb | all Cr] of `batch` images' blocks, image
+    by image: image b's luma rows move by b * ny, its Cb rows by
+    (B - 1) * ny + b * nc and its Cr rows by (B - 1) * (ny + nc) + b * nc
+    from one image's entry_row."""
+    row = scan_layout(geom).entry_row.astype(np.int64)
+    ny, nc = geom.num_luma_blocks, geom.num_chroma_blocks
+    hv = geom.h_factor * geom.v_factor
+    slot = np.arange(row.size) % geom.blocks_per_mcu
+    b = np.arange(batch)[:, None]
+    shift = np.where(
+        slot < hv, b * ny,
+        np.where(slot == hv, (batch - 1) * ny + b * nc,
+                 (batch - 1) * (ny + nc) + b * nc),
     )
+    return torch.from_numpy((row + shift).reshape(-1)).to(device)
 
 
 def marshal_scan_inputs(
@@ -119,10 +138,42 @@ def marshal_scan_inputs(
 
     One row gather in scan order; the dtype and the coefficient order
     (zigzag when the DCT emitted zigzag) are kept, and slot 0 holds each
-    block's raw DC.
+    block's raw DC. The arrays may hold B images' blocks, image by image
+    (B * ny luma rows, B * nc of each chroma): the result is then the B
+    images' (E, 64) entries one after another.
     """
+    batch, rest = divmod(y_coeffs.shape[0], geom.num_luma_blocks)
+    if rest or cb_coeffs.shape[0] != batch * geom.num_chroma_blocks:
+        raise ValueError(
+            f"coefficients of {y_coeffs.shape[0]} luma and "
+            f"{cb_coeffs.shape[0]} chroma blocks are not whole images of "
+            f"{geom.width}x{geom.height}"
+        )
     allc = torch.cat([y_coeffs, cb_coeffs, cr_coeffs])
-    return allc.index_select(0, _entry_rows(geom, allc.device))
+    return allc.index_select(0, _entry_rows(geom, batch, allc.device))
+
+
+def interval_rows(
+    num_entries: int,
+    entries_per_image: int | None,
+    entries_per_interval: int | None,
+    device: torch.device,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The framing of B images' entries into rows: ((N,) index of each
+    entry's interval's first entry, (N,) each entry's row, (n_rows,) each
+    row's first entry). Image e // E, interval (e % E) // epi of it; by
+    default one image of every entry and one interval an image."""
+    per_image = entries_per_image or num_entries
+    epi = entries_per_interval or per_image
+    n_int = -(-per_image // epi)
+    e = torch.arange(num_entries, device=device)
+    image, local = e // per_image, e % per_image
+    starts = (
+        torch.arange(num_entries // per_image, device=device)[:, None]
+        * per_image + torch.arange(n_int, device=device) * epi
+    ).reshape(-1)
+    return (image * per_image + local // epi * epi,
+            image * n_int + local // epi, starts)
 
 
 def entries_per_interval(geom: FrameGeometry, restart_mcus: int) -> int:
@@ -167,6 +218,7 @@ def dc_differences(
     hv: int,
     init_dc: torch.Tensor | None = None,
     entries_per_interval: int | None = None,
+    entries_per_image: int | None = None,
 ) -> torch.Tensor:
     """(E,) raw DCs in scan order -> (E,) differences along each
     component's predictor chain (luma, Cb, Cr).
@@ -177,11 +229,12 @@ def dc_differences(
     (the whole scan by default) takes init_dc's predictor; with several
     intervals that is 0, the reset T.81 E.2.4 defines at every restart
     marker (jpeg_encoder_tpu.ops.entropy.interval_dc_diffs, vmapped over
-    the intervals).
+    the intervals), and at every image of a batch.
     """
     num_entries = dc.shape[0]
     bpm = hv + 2
-    epi = entries_per_interval or num_entries
+    first, _, _ = interval_rows(num_entries, entries_per_image,
+                                entries_per_interval, dc.device)
     e = torch.arange(num_entries, device=dc.device)
     pos = e % bpm
     component = torch.clamp(pos - hv + 1, min=0)  # 0 luma, 1 Cb, 2 Cr
@@ -194,7 +247,7 @@ def dc_differences(
         else init_dc.to(device=dc.device, dtype=dc.dtype)
     )
     pred = torch.where(
-        prev >= e // epi * epi, dc[prev.clamp(min=0)], init[component]
+        prev >= first, dc[prev.clamp(min=0)], init[component]
     )
     return dc - pred
 
@@ -205,6 +258,7 @@ def slot_symbols(
     init_dc: torch.Tensor | None = None,
     live_entries: int | None = None,
     entries_per_interval: int | None = None,
+    entries_per_image: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(E, 64) zigzag scan entries, raw DC in slot 0 -> (ids, ampl, abl),
     each (E, 64) int64, in stream order.
@@ -230,7 +284,8 @@ def slot_symbols(
     run_dist = pos - run_base  # distance to the previous nonzero (>= 1)
 
     # Slot 0 codes the DC difference with the same amplitude formulas.
-    diff = dc_differences(z[:, 0], hv, init_dc, entries_per_interval)
+    diff = dc_differences(z[:, 0], hv, init_dc, entries_per_interval,
+                          entries_per_image)
     v = torch.cat([diff[:, None], z[:, 1:]], dim=1)
     bl = bit_length(v.abs())
     ampl = torch.where(v < 0, v + (1 << bl) - 1, v) & ((1 << bl) - 1)
@@ -247,7 +302,10 @@ def slot_symbols(
     )
     abl = torch.where(emit, bl, 0)
     if live_entries is not None:
-        live = torch.arange(num_entries, device=device) < live_entries
+        per_image = entries_per_image or num_entries
+        live = torch.arange(num_entries, device=device) % per_image < (
+            live_entries
+        )
         ids = torch.where(live[:, None], ids, _TRASH)
         abl = torch.where(live[:, None], abl, 0)
     return ids, torch.where(abl > 0, ampl, 0), abl
@@ -260,16 +318,25 @@ def symbolize(
     luts: tuple[torch.Tensor, torch.Tensor] | None = None,
     live_entries: int | None = None,
     entries_per_interval: int | None = None,
+    entries_per_image: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(E, 64) zigzag scan entries, raw DC in slot 0 -> (slot_bits,
-    slot_lens), both (E, 64) int64, in stream order."""
+    slot_lens), both (E, 64) int64, in stream order. luts: (dc, ac), each
+    (2, 256), or (B, 2, 256) with one table pair per image."""
     ids, ampl, abl = slot_symbols(
-        z, hv, init_dc, live_entries, entries_per_interval
+        z, hv, init_dc, live_entries, entries_per_interval, entries_per_image
     )
     dc_lut, ac_lut = luts if luts is not None else device_luts(z.device)
-    zero = torch.zeros(1, dtype=torch.int64, device=z.device)
-    lut = torch.cat([dc_lut.reshape(-1), ac_lut.reshape(-1)]).to(torch.int64)
-    cl = torch.cat([lut, zero])[ids]
+    # One row of 1024 codes (and a silent 1025th) per table pair.
+    lut = torch.cat(
+        [dc_lut.reshape(-1, 512), ac_lut.reshape(-1, 512),
+         torch.zeros_like(dc_lut.reshape(-1, 512)[:, :1])], dim=1,
+    ).to(torch.int64)
+    if lut.shape[0] > 1:
+        per_image = entries_per_image or z.shape[0]
+        image = torch.arange(z.shape[0], device=z.device) // per_image
+        ids = ids + (image * (_TRASH + 1))[:, None]
+    cl = lut.reshape(-1)[ids]
     slot_bits = ((cl & 0xFFFFF) << abl) | ampl
     slot_lens = (cl >> 20) + abl
     return slot_bits, slot_lens
@@ -283,21 +350,29 @@ def symbol_histograms(
     live_entries: int | None = None,
 ) -> torch.Tensor:
     """Huffman symbol counts of the scan: (4, 256) int64, rows Y-DC, C-DC,
-    Y-AC, C-AC (jpeg_encoder_tpu.ops.entropy.symbol_histograms).
+    Y-AC, C-AC (jpeg_encoder_tpu.ops.entropy.symbol_histograms); for the
+    entries of B > 1 images (a batch), (B, 4, 256), one an image.
 
     The statistics pass of the optimized-Huffman encode. restart_mcus must
     be the encode pass's: interval DC resets change the DC categories, and
     a category the tables do not cover has no code (a corrupt stream).
-    One bincount over the slots' symbol ids; silent slots and dead entries
-    land in a 1025th bin that is dropped.
+    One bincount over the slots' symbol ids, offset by 1025 per image;
+    silent slots and dead entries land in each image's 1025th bin, which
+    is dropped.
     """
+    per_image = geom.num_scan_entries
+    batch = z.shape[0] // per_image
     epi = (None if restart_mcus is None
            else entries_per_interval(geom, restart_mcus))
     ids, _, _ = slot_symbols(
-        z, geom.h_factor * geom.v_factor, init_dc, live_entries, epi
+        z, geom.h_factor * geom.v_factor, init_dc, live_entries, epi,
+        per_image,
     )
-    hist = torch.bincount(ids.reshape(-1), minlength=_TRASH + 1)
-    return hist[:_TRASH].reshape(4, 256)
+    image = torch.arange(z.shape[0], device=z.device) // per_image
+    ids = ids + (image * (_TRASH + 1))[:, None]
+    hist = torch.bincount(ids.reshape(-1), minlength=batch * (_TRASH + 1))
+    hist = hist.reshape(batch, _TRASH + 1)[:, :_TRASH].reshape(batch, 4, 256)
+    return hist[0] if batch == 1 else hist
 
 
 # --------------------------------------------------------------------------
@@ -340,28 +415,30 @@ def pack_bits(
     slot_lens: torch.Tensor,
     capacity_bytes: int,
     entries_per_interval: int | None = None,
+    entries_per_image: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter-add of MSB-first slot codes at their exclusive-cumsum
     offsets, one row per interval of entries_per_interval entries (the
-    last may be short).
+    last of each image may be short; interval_rows).
 
-    Returns (bytes (n_int, capacity_bytes) uint8, bits (n_int,) int32).
+    Returns (bytes (n_rows, capacity_bytes) uint8, bits (n_rows,) int32).
     Words at or past capacity_bytes / 4 of a row are dropped, never
     spilled into the next row; bits is still each row's true length,
     which is how callers detect an overflow.
     """
     num_entries, slots = slot_lens.shape
-    epi = entries_per_interval or num_entries
-    n_int = -(-num_entries // epi)
     device = slot_lens.device
+    _, entry_row, starts = interval_rows(
+        num_entries, entries_per_image, entries_per_interval, device
+    )
+    n_int = starts.shape[0]
     bits = slot_bits.reshape(-1)
     lens = slot_lens.reshape(-1)
     ends = torch.cumsum(lens, 0)
     offsets = ends - lens
-    first = torch.arange(n_int, device=device) * (epi * slots)
-    start = offsets[first]
+    start = offsets[starts * slots]
     interval_bits = torch.cat([start[1:], ends[-1:]]) - start
-    interval = torch.arange(lens.shape[0], device=device) // (epi * slots)
+    interval = entry_row.repeat_interleave(slots)
     word, hi, spill, lo = _split_slot_words(
         bits, lens, offsets - start[interval]
     )
@@ -393,7 +470,9 @@ def encode_entries(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(E, 64) scan entries -> (bytes (capacity_bytes,), total_bits), or,
     with entries_per_interval, (bytes (n_int, capacity_bytes), bits
-    (n_int,)) with one independently coded row per restart interval.
+    (n_int,)) with one independently coded row per restart interval; for
+    the entries of B images (B * geom.num_scan_entries rows), n_int rows
+    an image, image by image.
 
     The plain version of the entropy kernel: same operands, same result.
     """
@@ -402,11 +481,12 @@ def encode_entries(
             f"capacity_bytes must be a multiple of 4, got {capacity_bytes}"
         )
     hv = geom.h_factor * geom.v_factor
+    per_image = geom.num_scan_entries
     slot_bits, slot_lens = symbolize(
-        z, hv, init_dc, luts, live_entries, entries_per_interval
+        z, hv, init_dc, luts, live_entries, entries_per_interval, per_image
     )
     data, bits = pack_bits(
-        slot_bits, slot_lens, capacity_bytes, entries_per_interval
+        slot_bits, slot_lens, capacity_bytes, entries_per_interval, per_image
     )
     if entries_per_interval is None:
         return data[0], bits[0]

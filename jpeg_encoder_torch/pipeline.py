@@ -1,4 +1,4 @@
-"""End-to-end encode: the device path on one explicit device + host assembly.
+"""End-to-end encode: the device path on one device + host assembly.
 
 Port of jpeg_encoder_tpu/pipeline.py: encode_array with every DCT variant
 (RealDCT, --fast-dct, binDCT with and without the descale fix), every
@@ -9,9 +9,13 @@ ops; the DCT and the scan encoder are kernels (kernels/dct.py,
 kernels/entropy.py, kernels/pack.py through scan.py), which run their
 CUDA code on CUDA tensors and their plain PyTorch versions on CPU tensors.
 The host decodes the BMP, builds optimal tables, stuffs 0xFF bytes and
-writes the JFIF container (jpeg_encoder_tpu.tables and .io, shared).
+writes the JFIF container (the port's tables.py and io/).
 
-Every entry point takes its device explicitly; nothing here picks one.
+encode_array and encode_file run on "cuda" unless the caller passes
+another device ("cpu" runs the plain versions); without a card they raise,
+they do not fall back. The front half (scan_entries) also takes a batch of
+images, (B, H, W, 3), which parallel/batch.py codes in one launch per
+kernel.
 """
 
 from __future__ import annotations
@@ -23,10 +27,9 @@ import os
 import numpy as np
 import torch
 
-from jpeg_encoder_tpu import tables
-from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig, FrameGeometry
-from jpeg_encoder_tpu.io import bmp, jfif
-from jpeg_encoder_torch import scan
+from jpeg_encoder_torch import scan, tables
+from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig, FrameGeometry
+from jpeg_encoder_torch.io import bmp, jfif
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.ops import color, sample
 from jpeg_encoder_torch.ops import entropy as entropy_ops
@@ -138,11 +141,20 @@ def scan_entries(
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """(H, W, 3) uint8 on a device -> ((E, 64) int16 scan entries, the
     (N_i, 64) zigzag coefficients [Y, Cb, Cr]): the front half every core
-    shares (colour, pad, subsample, DCT, scan marshal)."""
+    shares (colour, pad, subsample, DCT, scan marshal).
+
+    A batch (B, H, W, 3) gives the B images' entries one after another,
+    (B * E, 64): the B padded planes of each component are stacked into
+    one (B * Hp, Wp) plane (Hp is a multiple of 8, so image b's blocks are
+    rows b * ny ... (b + 1) * ny - 1 of the DCT's raster order), the DCT
+    kernels run once on the three stacked planes, and the marshal gathers
+    each image's entries from [all Y | all Cb | all Cr].
+    """
     y, cb, cr = color.rgb_to_ycbcr(rgb)
     y = sample.pad_plane(y, geom)
     cb = sample.subsample_plane(sample.pad_plane(cb, geom), geom)
     cr = sample.subsample_plane(sample.pad_plane(cr, geom), geom)
+    y, cb, cr = (p.reshape(-1, p.shape[-1]) for p in (y, cb, cr))
     coeffs = dct_planes_zigzag(
         y, cb, cr, algorithm, quality,
         fast_dct=fast_dct, bin_dct_descale=bin_dct_descale,
@@ -394,16 +406,30 @@ def _climb_capacity_ladder(encode, geom, capacity, restart_mcus, validate):
                                                    capacity)
 
 
+def check_config(config) -> None:
+    """Refuse a config that is not this package's own EncoderConfig.
+
+    DctAlgorithm is an Enum, compared by identity: a jpeg_encoder_tpu
+    config's REAL_DCT is not this package's, and would route to binDCT.
+    """
+    if not isinstance(config, EncoderConfig):
+        raise TypeError(
+            "config must be a jpeg_encoder_torch.config.EncoderConfig, got "
+            f"{type(config).__module__}.{type(config).__qualname__}"
+        )
+
+
 def encode_array(
     rgb: np.ndarray,
     config: EncoderConfig = EncoderConfig(),
     *,
-    device: str | torch.device,
+    device: str | torch.device = "cuda",
     return_coeffs: bool = False,
     packer: str = "fused",
     _initial_capacity_bytes: int | None = None,
 ):
-    """Encode an (H, W, 3) uint8 RGB array into JFIF bytes on `device`.
+    """Encode an (H, W, 3) uint8 RGB array into JFIF bytes on `device`
+    (the card by default; "cpu" runs the plain versions).
 
     Every EncoderConfig option runs: restart_interval frames the scan
     into independently coded intervals (DRI/RSTn); optimize_huffman
@@ -416,6 +442,7 @@ def encode_array(
     Annex-K scan only), also returns the (N_i, 64) int16 natural-order
     quantized coefficients (y, cb, cr) as NumPy arrays.
     """
+    check_config(config)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError("expected (H, W, 3) RGB input")
     height, width = rgb.shape[:2]
@@ -486,9 +513,10 @@ def encode_file(
     output_path: str | os.PathLike,
     config: EncoderConfig = EncoderConfig(),
     *,
-    device: str | torch.device,
+    device: str | torch.device = "cuda",
 ) -> EncodeResult:
-    """BMP file -> JFIF file, encoded on `device`."""
+    """BMP file -> JFIF file, encoded on `device` (the card by default)."""
+    check_config(config)
     rgb = bmp.read(bmp_path)
     result = encode_array(rgb, config, device=device)
     with open(output_path, "wb") as f:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from jpeg_encoder_tpu.config import FrameGeometry
+from jpeg_encoder_torch.config import FrameGeometry
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.kernels import pack as pack_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops

@@ -12,8 +12,10 @@ require exact equality with the plain version run on CPU tensors, except
 K2 (--fast-dct), which is held to max |diff| 1 at mismatch rates below
 1e-3 against its plain version and 5e-4 against the exact K1: K4 also over
 restart intervals, with live_entries and with one-symbol optimal tables,
-and K5 over one row and many; then restart and optimized encodes on the
-card against the CPU path. The unmarked tests run everywhere and pin the
+over a batch of images (per-image rows, intervals and tables), and K5 over
+one row and many; the per-block tier (K6a/b, K6c) also against K1 and K3
+on the same blocks; then restart, optimized and batch encodes on the card
+against the CPU path. The unmarked tests run everywhere and pin the
 build's behaviour.
 """
 
@@ -23,15 +25,15 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_encoder_tpu import tables
-from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
-from jpeg_encoder_tpu.utils import corpus
-from jpeg_encoder_torch import pipeline, scan
+from jpeg_encoder_torch import pipeline, scan, tables
 from jpeg_encoder_torch.kernels import _build
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.kernels import pack as pack_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
+from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+from jpeg_encoder_torch.parallel import batch
+from jpeg_encoder_torch.utils import corpus
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -91,13 +93,18 @@ def test_build_runs_one_nvcc_per_source(monkeypatch, tmp_path):
 
 
 def test_every_kernel_has_its_source():
-    """The five kernels are the five csrc sources, each replacing a Pallas
-    kernel at a file:line that holds a pallas_call's entry point."""
+    """The seven kernels come from the five csrc sources (the per-block
+    tier shares realdct.cu and bindct.cu with K1 and K3), each replacing a
+    Pallas kernel at a file:line that holds a pallas_call's entry point."""
     kernels = (dct_kernel.REALDCT, dct_kernel.FASTDCT, dct_kernel.BINDCT,
-               entropy_kernel.ENTROPY, pack_kernel.PACK)
-    assert sorted(k.name for k in kernels) == _build.names()
+               entropy_kernel.ENTROPY, pack_kernel.PACK,
+               dct_kernel.REALDCT_BLOCKS, dct_kernel.BINDCT_BLOCKS)
+    assert sorted({k.lib for k in kernels}) == _build.names()
+    assert len({k.name for k in kernels}) == len(kernels)
+    assert dct_kernel.REALDCT_BLOCKS.lib == "realdct"
+    assert dct_kernel.BINDCT_BLOCKS.lib == "bindct"
     for k in kernels:
-        assert k.source == f"jpeg_encoder_torch/csrc/{k.name}.cu"
+        assert k.source == f"jpeg_encoder_torch/csrc/{k.lib}.cu"
         path, line = k.replaces.split(":")
         with open(os.path.join(REPO, path)) as f:
             assert f.read().splitlines()[int(line) - 1].startswith("def ")
@@ -361,3 +368,108 @@ def test_restart_and_optimize_on_card_match_cpu(cuda, size, config, packer):
     assert kernel[packer].launches > before
     want = pipeline.encode_array(rgb, config, device="cpu")
     assert got.file_bytes == want.file_bytes
+
+
+def _blocks_as_plane(blocks: torch.Tensor, blocks_x: int) -> torch.Tensor:
+    """The (H, W) plane whose blockify is `blocks` (row-major blocks)."""
+    n = blocks.shape[0]
+    return (blocks.reshape(n // blocks_x, blocks_x, 8, 8).permute(0, 2, 1, 3)
+            .reshape(n // blocks_x * 8, blocks_x * 8).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", [None, 35])
+@pytest.mark.parametrize("is_luma", [True, False])
+@pytest.mark.parametrize("n", [70, 32640])
+def test_block_kernels_match_plain_and_plane_kernels(cuda, n, is_luma,
+                                                     quality):
+    """K6a/b and K6c exactly against their plain versions, and against K1
+    and K3 on a plane whose blocks they are (luma: the Y plane; chroma:
+    the Cb plane)."""
+    rng = np.random.default_rng(n + is_luma)
+    blocks = torch.from_numpy(rng.integers(0, 256, (n, 64), dtype=np.uint8))
+    dev = blocks.to(cuda)
+    plane = _blocks_as_plane(dev, 10 if n == 70 else 240).to(cuda)
+    other = torch.zeros((8, 8), dtype=torch.uint8, device=cuda)
+    planes = (plane, other, other) if is_luma else (other, plane, plane)
+    for kernel, fn, planes_fn in (
+        (dct_kernel.REALDCT_BLOCKS, dct_kernel.real_dct_quant_zigzag,
+         dct_kernel.real_dct_quant_planes_zigzag),
+        (dct_kernel.BINDCT_BLOCKS, dct_kernel.bin_dct_quant_zigzag,
+         dct_kernel.bin_dct_quant_planes_zigzag),
+    ):
+        before = kernel.launches
+        got = fn(dev, is_luma, quality)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), fn(blocks, is_luma, quality))
+        three = planes_fn(*planes, quality)
+        assert torch.equal(got, three[0 if is_luma else 1].to(torch.int32))
+
+
+def _batch_entries(config, cuda, size, count=3):
+    """count corpus images' scan entries (on the CPU) and the geometry."""
+    width, height = size
+    images = np.stack([corpus.landscape(height, width, seed=s)
+                       for s in range(count)])
+    geom = config.geometry(width, height)
+    z, _ = pipeline.scan_entries(torch.from_numpy(images).to(cuda), geom,
+                                 config.dct_algorithm)
+    return z.cpu(), geom
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [None, 17, 120])
+@pytest.mark.parametrize("ratio", [(4, 2, 0), (4, 2, 2), (4, 4, 4)])
+def test_entropy_kernel_batch_matches_plain(cuda, ratio, interval):
+    """K4 over three 517x333 images (num_mcus % 17 and % 120 are not 0, so
+    intervals end at every image): per-image rows and intervals, Annex-K
+    and per-image optimal tables, and at 64 bytes a row."""
+    config = EncoderConfig(subsampling_ratio=ratio)
+    z, geom = _batch_entries(config, cuda, (517, 333))
+    epi = (geom.num_scan_entries if interval is None
+           else entropy_ops.entries_per_interval(geom, interval))
+    assert interval is None or geom.num_mcus % interval
+    hists = entropy_ops.symbol_histograms(z, geom, interval)
+    specs_luts = [pipeline.optimal_specs_and_luts(h.numpy(), "cpu")[1]
+                  for h in hists]
+    per_image = tuple(torch.stack([luts[i] for luts in specs_luts])
+                      for i in (0, 1))
+    cap = pipeline.restart_default_capacity_bytes(geom, interval or 10**4)
+    for luts, capacity in ((None, cap), (per_image, cap), (None, 64)):
+        args = dict(luts=luts, entries_per_interval=epi)
+        want, want_bits = entropy_kernel.encode_entries(z, geom, capacity,
+                                                        **args)
+        dev_args = dict(args, luts=None if luts is None else tuple(
+            t.to(cuda) for t in luts))
+        before = entropy_kernel.ENTROPY.launches
+        got, bits = entropy_kernel.encode_entries(z.to(cuda), geom, capacity,
+                                                  **dev_args)
+        torch.cuda.synchronize()
+        assert entropy_kernel.ENTROPY.launches == before + 1
+        assert bits.shape[0] == 3 * -(-geom.num_scan_entries // epi)
+        assert torch.equal(bits.cpu(), want_bits)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "config",
+    [EncoderConfig(), EncoderConfig(subsampling_ratio=(4, 4, 4), quality=90),
+     EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT, restart_interval=7),
+     EncoderConfig(optimize_huffman=True),
+     EncoderConfig(optimize_huffman=True, restart_interval=5,
+                   subsampling_ratio=(4, 2, 2))],
+    ids=["default", "444-q90", "bin-restart7", "optimize",
+         "optimize-restart5-422"],
+)
+def test_encode_batch_on_card_matches_cpu(cuda, config):
+    """Five 517x333 images through encode_batch on the card, each file the
+    single-image encode_array's on the CPU; one K4 launch codes them all."""
+    images = np.stack([corpus.portrait(333, 517, seed=s) for s in range(5)])
+    before = entropy_kernel.ENTROPY.launches
+    files = batch.encode_batch(images, config, device=cuda)
+    assert entropy_kernel.ENTROPY.launches == before + 1
+    for rgb, got in zip(images, files):
+        assert got == pipeline.encode_array(rgb, config, device="cpu").file_bytes

@@ -289,3 +289,87 @@ def test_dct_wrappers_match_pallas_kernels_interpret(variant, rng):
             _within(g.numpy(), np.asarray(w), 1e-3)
         else:
             assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+# The per-block tier: K6a/b and K6c's wrappers on CPU tensors (their plain
+# versions) against the Pallas kernels they replace, in interpret mode, on
+# the blocks and planes of tests/test_kernels.py.
+@pytest.mark.parametrize("quality", [None, 35])
+@pytest.mark.parametrize("is_luma", [True, False])
+def test_realdct_blocks_match_pallas_interpret(is_luma, quality, rng):
+    blocks = rng.integers(0, 256, size=(70, 64), dtype=np.uint8)
+    before = dct_kernel.REALDCT_BLOCKS.launches
+    got = dct_kernel.real_dct_quant_zigzag(_t(blocks), is_luma, quality)
+    assert dct_kernel.REALDCT_BLOCKS.launches == before
+    assert got.dtype == torch.int32 and got.shape == (70, 64)
+    want = dct_pallas.real_dct_quant_zigzag_pallas(
+        blocks, is_luma, interpret=True, quality=quality
+    )
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("transposed", ["kernel", "xla"])
+def test_realdct_blocks_match_transposed_pallas_interpret(transposed, rng):
+    """K6b: both TPU layouts compute K6a's function, so the one CUDA entry
+    (and its plain version) stands for both."""
+    blocks = rng.integers(0, 256, (700, 64), dtype=np.uint8)
+    for is_luma in (True, False):
+        got = dct_kernel.real_dct_quant_zigzag(_t(blocks), is_luma)
+        want = dct_pallas.real_dct_quant_zigzag_pallas_t(
+            jnp.asarray(blocks), is_luma, interpret=True,
+            transposed=transposed,
+        )
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("quality", [None, 35])
+@pytest.mark.parametrize("is_luma", [True, False])
+def test_bindct_blocks_match_pallas_interpret(is_luma, quality, rng):
+    blocks = rng.integers(0, 256, size=(70, 64), dtype=np.uint8)
+    before = dct_kernel.BINDCT_BLOCKS.launches
+    got = dct_kernel.bin_dct_quant_zigzag(_t(blocks), is_luma, quality)
+    assert dct_kernel.BINDCT_BLOCKS.launches == before
+    assert got.dtype == torch.int32 and got.shape == (70, 64)
+    want = dct_pallas.bin_dct_quant_zigzag_pallas(
+        blocks, is_luma, interpret=True, quality=quality
+    )
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("algorithm", ["real-dct", "bin-dct"])
+def test_block_tier_matches_oracle_and_plane_kernels(algorithm, rng):
+    """The per-block tier on each plane of an image equals the oracle's
+    coefficients and the 3-plane kernels' (K1, K3) plain versions on the
+    same planes: the check tests/test_kernels.py makes of the TPU tier."""
+    rgb = rng.integers(0, 256, size=(24, 40, 3), dtype=np.uint8)
+    config = EncoderConfig(dct_algorithm=DctAlgorithm(algorithm))
+    geom = config.geometry(40, 24)
+    golden = oracle.encode_oracle(rgb, config)
+    y, cb, cr = oracle.build_padded_planes(rgb, geom)
+    planes = [y, oracle.subsample_plane(cb, geom),
+              oracle.subsample_plane(cr, geom)]
+    if algorithm == "real-dct":
+        blocks_fn = dct_kernel.real_dct_quant_zigzag
+        planes_fn = dct_kernel.real_dct_quant_planes_zigzag
+    else:
+        blocks_fn = dct_kernel.bin_dct_quant_zigzag
+        planes_fn = dct_kernel.bin_dct_quant_planes_zigzag
+    three = planes_fn(*(_t(p) for p in planes))
+    golden_coeffs = (golden.y_coeffs, golden.cb_coeffs, golden.cr_coeffs)
+    for i, (plane, want, gold) in enumerate(zip(planes, three, golden_coeffs)):
+        got = blocks_fn(sample.blockify(_t(plane)), i == 0)
+        assert torch.equal(got, want.to(torch.int32))
+        natural = got.numpy()[:, tables.ZIGZAG_INVERSE]
+        assert np.array_equal(natural, gold.reshape(-1, 64))
+
+
+def test_block_wrappers_reject_bad_operands():
+    blocks = torch.zeros((4, 64), dtype=torch.uint8)
+    for fn in (dct_kernel.real_dct_quant_zigzag,
+               dct_kernel.bin_dct_quant_zigzag):
+        with pytest.raises(ValueError, match="uint8"):
+            fn(blocks.to(torch.int16), True)
+        with pytest.raises(ValueError, match="uint8"):
+            fn(blocks[:, :32], True)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(blocks.T.contiguous().T, True)

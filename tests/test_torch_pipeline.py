@@ -22,15 +22,16 @@ from PIL import Image
 
 from jpeg_encoder_tpu import oracle, tables
 from jpeg_encoder_tpu import pipeline as jax_pipeline
-from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_tpu.io import bmp, jfif
 from jpeg_encoder_torch import pipeline
+from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+from test_torch_host import jax_config
 
 RATIOS = [(4, 4, 4), (4, 2, 2), (4, 2, 0)]
 
 
 def _oracle_file(rgb, config):
-    golden = oracle.encode_oracle(rgb, config)
+    golden = oracle.encode_oracle(rgb, jax_config(config))
     return jfif.assemble(golden.geom, golden.entropy_bytes, quality=config.quality), golden
 
 
@@ -41,7 +42,7 @@ def test_file_bytes_match_jax_and_oracle(ratio, size, rng):
     rgb = rng.integers(0, 256, size=(height, width, 3), dtype=np.uint8)
     config = EncoderConfig(subsampling_ratio=ratio)
     got = pipeline.encode_array(rgb, config, device="cpu")
-    want = jax_pipeline.encode_array(rgb, config)
+    want = jax_pipeline.encode_array(rgb, jax_config(config))
     golden_file, golden = _oracle_file(rgb, config)
     assert got.bit_length == want.bit_length == golden.bit_length
     assert got.file_bytes == want.file_bytes == golden_file
@@ -59,7 +60,7 @@ def test_quality_matches_jax_and_oracle(ratio, size, rng):
     rgb = rng.integers(0, 256, size=(height, width, 3), dtype=np.uint8)
     config = EncoderConfig(subsampling_ratio=ratio, quality=90)
     got = pipeline.encode_array(rgb, config, device="cpu")
-    want = jax_pipeline.encode_array(rgb, config)
+    want = jax_pipeline.encode_array(rgb, jax_config(config))
     golden_file, _ = _oracle_file(rgb, config)
     assert got.file_bytes == want.file_bytes == golden_file
 
@@ -88,7 +89,8 @@ def test_capacity_ladder_retry_matches_jax(rng):
     assert pipeline.next_capacity_bytes(geom, 64) == 512
     got = pipeline.encode_array(rgb, config, device="cpu", _initial_capacity_bytes=64)
     assert got.bit_length > 8 * 64
-    want = jax_pipeline.encode_array(rgb, config, _initial_capacity_bytes=64)
+    want = jax_pipeline.encode_array(rgb, jax_config(config),
+                                     _initial_capacity_bytes=64)
     assert got.file_bytes == want.file_bytes
     assert got.file_bytes == pipeline.encode_array(rgb, config, device="cpu").file_bytes
 
@@ -112,8 +114,9 @@ def test_return_coeffs_match_jax_and_oracle(rng):
     rgb = rng.integers(0, 256, size=(17, 33, 3), dtype=np.uint8)
     config = EncoderConfig(subsampling_ratio=(4, 2, 0), validate=True)
     got, coeffs = pipeline.encode_array(rgb, config, device="cpu", return_coeffs=True)
-    want, want_coeffs = jax_pipeline.encode_array(rgb, config, return_coeffs=True)
-    golden = oracle.encode_oracle(rgb, config)
+    want, want_coeffs = jax_pipeline.encode_array(rgb, jax_config(config),
+                                                  return_coeffs=True)
+    golden = oracle.encode_oracle(rgb, jax_config(config))
     assert got.file_bytes == want.file_bytes
     golden_coeffs = (golden.y_coeffs, golden.cb_coeffs, golden.cr_coeffs)
     for c, w, g in zip(coeffs, want_coeffs, golden_coeffs):
@@ -144,7 +147,7 @@ def test_restart_and_optimize_options_match_oracle(config):
     port's optimal tables."""
     rgb = np.random.default_rng(12).integers(0, 256, (32, 64, 3), np.uint8)
     got = pipeline.encode_array(rgb, config, device="cpu")
-    golden = oracle.encode_oracle(rgb, EncoderConfig())
+    golden = oracle.encode_oracle(rgb, jax_config(EncoderConfig()))
     coeffs = (golden.y_coeffs, golden.cb_coeffs, golden.cr_coeffs)
     if config.restart_interval is not None:
         segments, bits = oracle.entropy_encode_restart(
@@ -191,9 +194,15 @@ def test_restart_and_optimize_refuse_return_coeffs(config):
 
 
 def test_device_must_be_named():
+    """The CPU runs only when named: without a device argument the encode
+    goes to the card, and with no card it raises (no fallback)."""
     rgb = np.zeros((16, 16, 3), np.uint8)
-    with pytest.raises(TypeError):
-        pipeline.encode_array(rgb, EncoderConfig())  # no device argument
+    if torch.cuda.is_available():
+        assert pipeline.encode_array(rgb).file_bytes == pipeline.encode_array(
+            rgb, device="cpu").file_bytes
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            pipeline.encode_array(rgb, EncoderConfig())  # no device argument
     with pytest.raises(ValueError):
         pipeline.encode_array(rgb[..., :2], EncoderConfig(), device="cpu")
 
@@ -226,7 +235,7 @@ def test_bindct_file_bytes_match_jax_and_oracle(ratio, size, rng):
     rgb = rng.integers(0, 256, size=(height, width, 3), dtype=np.uint8)
     config = dataclasses.replace(BIN_DCT, subsampling_ratio=ratio)
     got = pipeline.encode_array(rgb, config, device="cpu")
-    want = jax_pipeline.encode_array(rgb, config)
+    want = jax_pipeline.encode_array(rgb, jax_config(config))
     golden_file, golden = _oracle_file(rgb, config)
     assert got.bit_length == want.bit_length == golden.bit_length
     assert got.file_bytes == want.file_bytes == golden_file
@@ -242,7 +251,7 @@ def test_bindct_descale_file_bytes_match_jax(ratio, quality, rng):
                                  bin_dct_descale=True, quality=quality)
     got, coeffs = pipeline.encode_array(rgb, config, device="cpu",
                                         return_coeffs=True)
-    want, want_coeffs = jax_pipeline.encode_array(rgb, config,
+    want, want_coeffs = jax_pipeline.encode_array(rgb, jax_config(config),
                                                   return_coeffs=True)
     assert got.file_bytes == want.file_bytes
     for c, w in zip(coeffs, want_coeffs):
@@ -255,7 +264,8 @@ def test_fast_dct_coeffs_within_tolerance_of_oracle(ratio, rng):
     config = EncoderConfig(subsampling_ratio=ratio, fast_dct=True)
     got, coeffs = pipeline.encode_array(rgb, config, device="cpu",
                                         return_coeffs=True)
-    golden = oracle.encode_oracle(rgb, config)  # the oracle's exact RealDCT
+    # The oracle's exact RealDCT.
+    golden = oracle.encode_oracle(rgb, jax_config(config))
     d = np.concatenate([
         np.abs(c.astype(np.int32) - g.reshape(-1, 64).astype(np.int32))
         for c, g in zip(coeffs, (golden.y_coeffs, golden.cb_coeffs,
@@ -301,7 +311,7 @@ def test_ignored_flags_match_jax(config):
     under RealDCT; so does the port, byte for byte."""
     rgb = np.random.default_rng(5).integers(0, 256, (24, 40, 3), np.uint8)
     got = pipeline.encode_array(rgb, config, device="cpu")
-    want = jax_pipeline.encode_array(rgb, config)
+    want = jax_pipeline.encode_array(rgb, jax_config(config))
     assert got.file_bytes == want.file_bytes
     plain = dataclasses.replace(config, fast_dct=False, bin_dct_descale=False)
     assert got.file_bytes == pipeline.encode_array(rgb, plain, device="cpu").file_bytes
@@ -319,7 +329,7 @@ def test_bindct_checkerboard_leaves_the_scan_range():
                                  quality=100)
     got, coeffs = pipeline.encode_array(rgb, config, device="cpu",
                                         return_coeffs=True)
-    want = jax_pipeline.encode_array(rgb, config)
+    want = jax_pipeline.encode_array(rgb, jax_config(config))
     assert max(int(np.abs(c.astype(np.int32)).max()) for c in coeffs) >= 1 << 10
     assert got.bit_length == want.bit_length == 6032
     assert got.file_bytes == want.file_bytes
@@ -327,4 +337,4 @@ def test_bindct_checkerboard_leaves_the_scan_range():
     with pytest.raises(ValueError, match="AC coefficient bit length"):
         pipeline.encode_array(rgb, checked, device="cpu")
     with pytest.raises(ValueError, match="AC coefficient bit length"):
-        oracle.encode_oracle(rgb, config)
+        oracle.encode_oracle(rgb, jax_config(config))

@@ -19,12 +19,13 @@ from PIL import Image
 
 from jpeg_encoder_tpu import oracle
 from jpeg_encoder_tpu import pipeline as jax_pipeline
-from jpeg_encoder_tpu.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_tpu.io import jfif
 from jpeg_encoder_tpu.ops import entropy as jax_entropy
 from jpeg_encoder_torch import pipeline, scan
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.ops import entropy
+from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+from test_torch_host import jax_config
 
 RATIOS = [(4, 2, 0), (4, 2, 2), (4, 4, 4)]
 
@@ -35,7 +36,7 @@ def _image(h=40, w=48, seed=50):
 
 
 def _oracle_restart(rgb, config, interval):
-    ref = oracle.encode_oracle(rgb, config)
+    ref = oracle.encode_oracle(rgb, jax_config(config))
     segments, bits = oracle.entropy_encode_restart(
         ref.y_coeffs, ref.cb_coeffs, ref.cr_coeffs, ref.geom, interval
     )
@@ -144,7 +145,7 @@ def test_restart_file_matches_jax_pipeline(ratio):
     rgb = _image()
     config = EncoderConfig(subsampling_ratio=ratio, restart_interval=3)
     got = pipeline.encode_array(rgb, config, device="cpu")
-    want = jax_pipeline.encode_array(rgb, config)
+    want = jax_pipeline.encode_array(rgb, jax_config(config))
     assert got.file_bytes == want.file_bytes
     assert got.entropy_payload == want.entropy_payload
     assert got.bit_length == want.bit_length
@@ -324,4 +325,5 @@ def test_return_coeffs_raises(config):
         pipeline.encode_array(_image(16, 16), config, device="cpu",
                               return_coeffs=True)
     with pytest.raises(ValueError, match="return_coeffs"):
-        jax_pipeline.encode_array(_image(16, 16), config, return_coeffs=True)
+        jax_pipeline.encode_array(_image(16, 16), jax_config(config),
+                                  return_coeffs=True)

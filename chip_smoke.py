@@ -27,8 +27,12 @@ file against the single-image card path, a few against the CPU path) and
 the per-block tier (K6 on every plane of the 1080p corpus, against K1 and
 K3), each path between a reset and a read of the launch counts, and times
 the kernels (beside their bounds), the batch against a loop of single
-encodes, and the end-to-end encodes. Any mismatch or error exits non-zero
-before the final line, which is
+encodes, and the end-to-end encodes. It also prints each kernel's
+registers, spills and shared memory as ptxas reports them, the
+torch.matmul yardstick of K2 by events and device-busy time, and the
+device operations of one K4 call (failing unless they are the memset and
+one kernel). Any mismatch or error exits non-zero before the final line,
+which is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -85,11 +89,10 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def busy_ms(fn, reps: int = REPS) -> float | None:
-    """Device-busy milliseconds per fn() from torch.profiler: the summed
-    durations of the kernels, copies and fills it ran, without the gaps in
-    which the card waits for the host to launch them. None if the profiler
-    saw no device activity."""
+def device_ops(fn, reps: int = 5) -> list[tuple[str, float, float]]:
+    """The device operations (kernels, memsets, copies) of fn(), from
+    torch.profiler over reps warm calls: (name, count per call, device ms
+    per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -98,27 +101,27 @@ def busy_ms(fn, reps: int = REPS) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(
-        e.self_device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    return total_us / 1e3 / reps if total_us else None
+    return [(e.key, e.count / reps, e.self_device_time_total / 1e3 / reps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_ms(fn, reps: int = REPS) -> float | None:
+    """Device-busy milliseconds per fn(): the summed durations of the
+    kernels, copies and fills it ran, without the gaps in which the card
+    waits for the host to launch them. None if the profiler saw no device
+    activity in three tries (it now and then returns an empty trace)."""
+    for _ in range(3):
+        total = sum(ms for _, _, ms in device_ops(fn, reps))
+        if total:
+            return total
+    return None
 
 
 def top_device_ops(fn, count: int = 6, reps: int = 5) -> list[tuple]:
-    """The device operations of fn() with the most device time, from
-    torch.profiler: (name, device ms per call), largest first."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ops = [(e.key, e.self_device_time_total / 1e3 / reps)
-           for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    """The device operations of fn() with the most device time: (name,
+    device ms per call), largest first."""
+    ops = [(name, ms) for name, _, ms in device_ops(fn, reps)]
     return sorted(ops, key=lambda op: -op[1])[:count]
 
 
@@ -944,10 +947,13 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FP32_ISSUE_OPS = FP32_FLOPS / 2
 INT32_OPS = FP32_FLOPS / 4
-# Operations per 8x8 block: RealDCT, 64 coefficients of 64 steps (two
-# multiplies, an add) plus a scale multiply and a divide; binDCT, 16
-# 8-point lifts of 43 integer operations, 64 level shifts, 64 divides.
-REALDCT_BLOCK_OPS = 64 * (64 * 3 + 2)
+# Operations per 8x8 block: RealDCT, the least work its function needs, 8
+# first products px[k] * B[u][x_k] a step (one per u, shared by the 8
+# coefficients of that u: the same operands give the same rounded product),
+# 64 second products and 64 adds a step, over 64 steps, then a scale
+# multiply and a divide a coefficient; binDCT, 16 8-point lifts of 43
+# integer operations, 64 level shifts, 64 divides.
+REALDCT_BLOCK_OPS = 8 * 64 + 64 * 64 * 2 + 2 * 64
 BINDCT_BLOCK_OPS = 16 * 43 + 64 + 64
 
 
@@ -1002,13 +1008,29 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
         if label == "1920x1080":
             bounds = kernel_bounds(geom, planes, z, cap, y_blocks)
             library = dict.fromkeys(bounds)
+            library_busy = dict.fromkeys(bounds)
             shifted = (torch.cat([sample.blockify(p) for p in planes])
                        .to(torch.int16) - 128).to(torch.float32)
             kzz = dct_ops.fast_device_constant(cuda)
-            library["fastdct"] = cuda_ms(lambda: torch.matmul(shifted, kzz.T))
+            matmul = lambda: torch.matmul(shifted, kzz.T)
+            library["fastdct"] = cuda_ms(matmul)
+            library_busy["fastdct"] = busy_ms(matmul)
             print(f"time library torch.matmul ({shifted.shape[0]}, 64) x "
-                  f"(64, 64) f32, TF32 off (K2's product): "
-                  f"{library['fastdct']:.4f} ms ({card})", flush=True)
+                  f"(64, 64) f32, TF32 off (K2's product): events "
+                  f"{library['fastdct']:.4f} ms, device-busy "
+                  f"{fmt(library_busy['fastdct'])} ms ({card})", flush=True)
+            for _ in range(3):  # an empty trace is retried, as in busy_ms
+                ops = device_ops(lambda: entropy_kernel.encode_entries(
+                    z, geom, cap))
+                count = sum(c for _, c, _ in ops)
+                if count:
+                    break
+            check(0 < count <= 2, "one K4 call ran other than the memset and "
+                  f"one kernel: {ops}")
+            print(f"K4 device operations per call, 1920x1080 4:2:0 unbroken: "
+                  f"{count:g} (" + "; ".join(f"{name[:50]} x{c:g}"
+                                              for name, c, _ in ops)
+                  + f") ({card})", flush=True)
 
         # Turns: plain, kernel, kernel, plain; each figure is the mean of
         # the two runs' medians.
@@ -1099,7 +1121,7 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
                                                  None))
     print(f"time host restart_result 1920x1080 4:2:0 restart 1 "
           f"({len(bit_list)} segments): {ms:.3f} ms", flush=True)
-    return times, bounds, library
+    return times, bounds, library, library_busy
 
 
 def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
@@ -1185,6 +1207,9 @@ def main() -> int:
     print(f"build: {len(_build.names())} nvcc in parallel, "
           f"{' '.join(_build.NVCC_FLAGS)} -> {_build.BUILD_DIR}/lib*.so "
           f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name in _build.names():
+        for line in _build.ptxas_usage(name):
+            print(f"ptxas {name}.cu: {line}", flush=True)
 
     rng = np.random.default_rng(20260)
     images_1080 = {name: fn(1080, 1920) for name, fn in corpus.CORPUS.items()}
@@ -1219,7 +1244,8 @@ def main() -> int:
     path_counts.append(block_tier_path(cuda, images_1080))
     phase_s["per-block tier"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    times, bounds, library = timing_phase(cuda, images_1080, images_4k, card)
+    times, bounds, library, library_busy = timing_phase(
+        cuda, images_1080, images_4k, card)
     phase_s["timing"] = time.perf_counter() - t0
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                         phase_s.items()) + f" ({card})",
@@ -1235,6 +1261,7 @@ def main() -> int:
         "max_abs_err": errors[k.name], "ms": times[k.name][0],
         "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
         "bound_by": bounds[k.name][1], "library_ms": library[k.name],
+        "library_busy_ms": library_busy[k.name],
     } for k in all_kernels()]
     print(card)
     print(json.dumps({"kernels": kernels}))

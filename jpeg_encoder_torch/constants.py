@@ -71,6 +71,39 @@ def realdct_constants(quality: int | None = None) -> RealDctConstants:
     return consts
 
 
+class RealDctKernelOperands(NamedTuple):
+    """The RealDCT kernel's compact form of realdct_constants: the basis
+    once, and the rows in natural order (index u * 8 + v) with the zigzag
+    position of each. a_steps[k, j] = basis[u_j, x_k] and b_steps[k, j] =
+    basis[v_j, y_k], so the kernel forms px[k] * basis[u, x_k] once per u
+    and multiplies it by basis[v, y_k] for each v, the same two products in
+    the same order."""
+
+    basis: np.ndarray     # (8, 8) f32, basis[u, x] = oracle.dct_basis_f32()
+    scale: np.ndarray     # (64,) f32, natural order
+    q_luma: np.ndarray    # (64,) f32, natural order
+    q_chroma: np.ndarray  # (64,) f32, natural order
+    zigzag: np.ndarray    # (64,) int32: zigzag position of natural index
+
+
+@functools.cache
+def realdct_kernel_operands(quality: int | None = None) -> RealDctKernelOperands:
+    """realdct_constants(quality) in the kernel's compact form, rows taken
+    from it bit for bit."""
+    consts = realdct_constants(quality)
+    zigzag = tables.ZIGZAG_INVERSE.copy()
+    ops = RealDctKernelOperands(
+        basis=np.ascontiguousarray(oracle.dct_basis_f32(), dtype=_F32),
+        scale=np.ascontiguousarray(consts.scale[0][zigzag]),
+        q_luma=np.ascontiguousarray(consts.q_luma[0][zigzag]),
+        q_chroma=np.ascontiguousarray(consts.q_chroma[0][zigzag]),
+        zigzag=zigzag,
+    )
+    for arr in ops:
+        arr.setflags(write=False)
+    return ops
+
+
 @functools.cache
 def fast_kron_zigzag() -> np.ndarray:
     """(64, 64) f32 M[j, xy] = scale[u, v] * B[u, x] * B[v, y], where

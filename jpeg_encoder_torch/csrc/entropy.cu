@@ -10,57 +10,62 @@
 // num_words are dropped and the bit count still reports the true length,
 // which is how the caller detects an overflow.
 //
-// Restart intervals (the TPU kernel vmapped over them): the entries are cut
-// every entries_per_interval entries (whole MCUs; the last interval may be
-// short) into independently coded streams. Interval j packs into its own
-// row of num_words words from bit 0, its DC predictors start at init_dc
-// (0 for a restart-framed scan), and interval_bits[j] is its true length;
-// an overflowing interval drops its excess words and never spills into row
-// j + 1. The unbroken scan is one interval of all entries. Entries at
-// index >= live_entries emit nothing (a fully dead interval reports 0).
-//
-// A batch (the TPU kernel vmapped over images): z holds B images of
-// entries_per_image (E) entries each, and the intervals restart at every
-// image, so entry e lies in image e / E, in interval (e % E) / epi of that
-// image, in row (e / E) * n_int + (e % E) / epi, with n_int = ceil(E / epi)
-// rows an image; the unbroken scan of each image is epi = E. live_entries
-// counts within each image. The Huffman tables of image i are dc_lut and
-// ac_lut advanced by i * lut_stride ints (0: one pair for all); the CTAs of
-// blockIdx.y = i code image i alone, so each loads its own pair.
+// Rows. The entries are cut into rows, each coded on its own from bit 0
+// into its own num_words words: a restart interval (the TPU kernel vmapped
+// over them; entries_per_interval entries, whole MCUs, the last interval
+// of an image may be short) or, for the unbroken scan, the whole image. A
+// batch (the TPU kernel vmapped over images) holds B images of
+// entries_per_image (E) entries each; the intervals restart at every
+// image, so local entry l of image i lies in row i * n_int + l / epi, with
+// n_int = ceil(E / epi). A row's DC predictors start at init_dc (0 for a
+// restart-framed scan or a batch), interval_bits[row] is its true length,
+// and an overflowing row drops its excess words and never spills into the
+// next. Entries at an image's index >= live_entries emit nothing (a fully
+// dead row reports 0). The Huffman tables of image i are dc_lut and ac_lut
+// advanced by i * lut_stride ints (0: one pair for all).
 //
 // The TPU kernel carries the running bit offset from one grid step to the
-// next because its grid runs in order. Hopper gives no such order, so this
-// is three passes:
-//   1. count: one warp per entry (two zigzag slots a lane) computes the
-//      entry's bit count;
-//   2. scan: an exclusive scan of the counts (a block scan per tile of
-//      4096 entries, then one CTA over the tile totals) gives every entry
-//      its global bit offset; an entry's offset in its interval is that
-//      minus the offset of the interval's first entry, and an interval's
-//      length the difference of two such offsets;
-//   3. write: each warp recomputes its entry's slot codes, places them in
-//      a shared-memory copy of the words it spans, then stores the words it
-//      owns alone and atomicOr's the (at most two) boundary words it shares
-//      with its neighbours into the zero-filled output. The bit ranges are
-//      disjoint, so the result does not depend on the order of the atomics.
-// Words are stored byte-swapped, so the output read as bytes is the stream.
+// next because its grid runs in order. Hopper gives no such order; this
+// kernel is one pass, a single-pass scan with decoupled look-back (Merrill
+// and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", NVIDIA technical report, 2016):
+//   * A CTA codes one tile of kTile consecutive entries of one image. It
+//     takes the tile's index from an atomic counter, not from blockIdx, so
+//     every tile it may wait on belongs to a CTA that is already running.
+//   * It loads the tile's entries once, coalesced, into shared memory (and
+//     the raw DCs of the few entries before the tile, which the first DC
+//     predictors need). One thread an entry then finds the entry's row and
+//     its DC difference, and each of the 4 warps symbolizes 16 entries once:
+//     a lane codes two zigzag slots (the run bases from two ballots of the
+//     nonzero slots) and keeps their codes in registers.
+//   * The bit offsets are a prefix sum segmented at row starts. The CTA
+//     scans its entries' lengths; if its first entry starts a row it needs
+//     nothing from other tiles, else it publishes its sum and looks back
+//     over its predecessors' published sums until it meets the tile that
+//     holds the row's first entry (whose sum for the row is a prefix). A
+//     tile that holds a row start publishes that row's prefix at once.
+//   * The tile packs its bits in shared memory, one run of words per row
+//     it touches (segment), at their final offsets within the row, then
+//     stores whole big-endian words coalesced; only a segment's first and
+//     last words, which it may share with the neighbouring tiles, go
+//     through atomicOr (the bit ranges are disjoint, so the result does not
+//     depend on the order). The CTA holding a row's last entry writes the
+//     row's bit count.
+// One launch therefore reads the coefficients once and runs one kernel,
+// after one memset that zeroes the output rows, the tile status words and
+// the tile counter (a single buffer from the wrapper).
 //
-// Each slot's symbol needs the entry's run state: a warp max-scan of the
-// nonzero positions gives every slot the previous nonzero; the DC
-// predictor is the raw DC of the previous entry of the same component,
-// read from device memory at the static scan distance 1 (a luma block after
-// another of its MCU), bpm - hv + 1 (an MCU's first luma block) or bpm
-// (chroma), as _entropy_kernel explains; a lookback that would leave the
-// entry's interval takes init_dc instead.
+// What bounds it on Hopper: the function moves few bytes (128 B of
+// coefficients an entry in, a few bits of stream out), but its
+// symbolization is integer, shuffle and table work, a warp an entry, and a
+// tile's prefix waits on its predecessors. So each entry is symbolized
+// once; a tile of 64 entries on 4 warps keeps the CTA small enough (78
+// registers, 6 CTAs an SM) that every 1080p tile is resident at once; and
+// the look-back reads 32 predecessors a step.
 //
-// What bounds it on Hopper: bytes moved (128 B of coefficients read twice,
-// plus the counts and the output stream) and the serial dependence of the
-// offsets, which costs the scan pass and a second symbolization.
-//
-// The offsets are int32, as in the TPU kernel, and the one scan runs over
-// the whole batch: the caller keeps B times an image's worst case below
-// 2^31 bits (kernels/entropy.py refuses more, parallel/batch.py sizes its
-// chunks under it).
+// The offsets are int32 and relative to the row, so the bound is per row:
+// the caller keeps one image's worst case below 2^31 bits
+// (kernels/entropy.py refuses more).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,21 +73,18 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarps = 8;                    // warps (entries in flight) a CTA
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kScanThreads = 1024;
-constexpr int kScanItems = 4;
-constexpr int kScanTile = kScanThreads * kScanItems;  // entries per scan tile
-// Words one entry can span: 64 slots of at most 32 bits, plus 31 phase bits.
-constexpr int kEntryWords = 66;
+constexpr int kTile = 64;                  // entries a tile (one CTA)
+constexpr int kPerWarp = kTile / kWarps;   // entries a warp symbolizes
+constexpr int kHalo = 8;                   // raw DCs kept from before the tile
 constexpr int kLutSize = 1024;  // dc luma, dc chroma, ac luma, ac chroma
-
-struct SlotPair {
-  uint32_t bits0, bits1;
-  int len0, len1;
-};
-
-__device__ __forceinline__ int bit_length(int v) { return 32 - __clz(v); }
+// A tile's packed words: 64 slots of at most 32 bits an entry, plus at
+// most two partial words a segment (at most kTile segments).
+constexpr int kBufWords = kTile * 64 + 2 * kTile;
+// Tile status words: flag in the high half, bit count in the low half.
+constexpr unsigned long long kAggregate = 1ull << 32;  // the tile's own sum
+constexpr unsigned long long kPrefix = 2ull << 32;     // sum since row start
 
 // Code of one slot: i is the zigzag position, v its value (slot 0: the DC
 // difference), run_base the position of the previous nonzero (0 if none).
@@ -91,7 +93,7 @@ __device__ __forceinline__ void slot_code(int i, int v, int run_base,
                                           const int* lut, uint32_t& bits,
                                           int& len) {
   if (i == 0 || v != 0) {
-    const int bl = bit_length(v < 0 ? -v : v);
+    const int bl = 32 - __clz(v < 0 ? -v : v);
     const int mask = (1 << bl) - 1;
     const int ampl = (v < 0 ? v + mask : v) & mask;
     int idx;
@@ -105,7 +107,7 @@ __device__ __forceinline__ void slot_code(int i, int v, int run_base,
     bits = (static_cast<uint32_t>(cl & 0xFFFFF) << bl) |
            static_cast<uint32_t>(ampl);
     len = (cl >> 20) + bl;
-  } else if (i <= last_nz && (i - run_base) % 16 == 0) {  // ZRL
+  } else if (i <= last_nz && ((i - run_base) & 15) == 0) {  // ZRL
     const int cl = lut[512 + chroma * 256 + 0xF0];
     bits = static_cast<uint32_t>(cl & 0xFFFFF);
     len = cl >> 20;
@@ -119,185 +121,42 @@ __device__ __forceinline__ void slot_code(int i, int v, int run_base,
   }
 }
 
-// Slots 2*lane and 2*lane+1 of entry e, for a whole warp.
-// `first` is the index of the first entry of e's interval.
-__device__ __forceinline__ SlotPair symbolize(const int16_t* __restrict__ z,
-                                              int e, int first, int hv,
-                                              const int* __restrict__ init_dc,
-                                              const int* lut, int lane) {
-  const int bpm = hv + 2;
-  const int pos = e % bpm;
-  const int chroma = pos >= hv;
-  const uint32_t pair =
-      reinterpret_cast<const uint32_t*>(z + static_cast<size_t>(e) * 64)[lane];
-  int v0 = static_cast<int16_t>(static_cast<uint16_t>(pair & 0xFFFFu));
+// The largest slot whose bit is set in m (bit k: slot 2k + parity), or 0.
+__device__ __forceinline__ int last_slot(unsigned m, int parity) {
+  return m ? 2 * (31 - __clz(m)) + parity : 0;
+}
+
+// One warp codes one entry (ent, in shared memory): lane codes slots
+// 2*lane and 2*lane+1. dc: the entry's DC difference * 2 + chroma.
+__device__ __forceinline__ void symbolize(const int16_t* ent, int dc,
+                                          const int* lut, int lane,
+                                          uint32_t& bits0, int& len0,
+                                          uint32_t& bits1, int& len1) {
+  const uint32_t pair = reinterpret_cast<const uint32_t*>(ent)[lane];
+  const int chroma = dc & 1;
+  const int v0 =
+      lane == 0 ? dc >> 1 : static_cast<int16_t>(static_cast<uint16_t>(pair));
   const int v1 = static_cast<int16_t>(static_cast<uint16_t>(pair >> 16));
-  if (lane == 0) {
-    const int d = pos >= hv ? bpm : (pos == 0 ? bpm - hv + 1 : 1);
-    const int init = pos < hv ? init_dc[0] : (pos == hv ? init_dc[1] : init_dc[2]);
-    const int prev =
-        e - d < first ? init
-                      : static_cast<int>(z[static_cast<size_t>(e - d) * 64]);
-    v0 -= prev;
-  }
-  const int i0 = 2 * lane, i1 = 2 * lane + 1;
-  const int m0 = (i0 > 0 && v0 != 0) ? i0 : 0;
-  const int m1 = v1 != 0 ? i1 : 0;
-  int incl = max(m0, m1);
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl = max(incl, t);
-  }
-  int excl = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) excl = 0;
-  const int last_nz = __shfl_sync(kFull, incl, 31);
-  SlotPair s;
-  slot_code(i0, v0, excl, last_nz, chroma, lut, s.bits0, s.len0);
-  slot_code(i1, v1, max(excl, m0), last_nz, chroma, lut, s.bits1, s.len1);
-  return s;
+  // The nonzero AC slots, two ballots: bit k is slot 2k (even; the DC
+  // slot excluded) or slot 2k + 1 (odd). A slot's run starts after the
+  // last nonzero slot before it.
+  const unsigned even = __ballot_sync(kFull, lane > 0 && v0 != 0);
+  const unsigned odd = __ballot_sync(kFull, v1 != 0);
+  const unsigned below = (1u << lane) - 1;
+  const int odd_base = last_slot(odd & below, 1);
+  const int base0 = max(last_slot(even & below, 0), odd_base);
+  const int base1 = max(last_slot(even & (below | 1u << lane), 0), odd_base);
+  const int last_nz = max(last_slot(even, 0), last_slot(odd, 1));
+  slot_code(2 * lane, v0, base0, last_nz, chroma, lut, bits0, len0);
+  slot_code(2 * lane + 1, v1, base1, last_nz, chroma, lut, bits1, len1);
 }
 
-__device__ __forceinline__ void load_luts(int* lut, const int* dc_lut,
-                                          const int* ac_lut) {
-  for (int t = threadIdx.x; t < kLutSize; t += blockDim.x) {
-    lut[t] = t < 512 ? dc_lut[t] : ac_lut[t - 512];
-  }
-  __syncthreads();
-}
-
-// blockIdx.y is the image; its entries are e = image * per_image + local.
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const int16_t* __restrict__ z, int per_image, int epi,
-             int live_entries, int hv, const int* __restrict__ init_dc,
-             const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
-             int lut_stride, int* __restrict__ entry_bits) {
-  __shared__ int lut[kLutSize];
-  const int base = blockIdx.y * per_image;
-  load_luts(lut, dc_lut + blockIdx.y * lut_stride,
-            ac_lut + blockIdx.y * lut_stride);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int local = blockIdx.x * kWarps + warp; local < per_image;
-       local += gridDim.x * kWarps) {
-    const int e = base + local;
-    if (local >= live_entries) {  // warp-uniform
-      if (lane == 0) entry_bits[e] = 0;
-      continue;
-    }
-    const SlotPair s =
-        symbolize(z, e, base + local / epi * epi, hv, init_dc, lut, lane);
-    int n = s.len0 + s.len1;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(kFull, n, off);
-    if (lane == 0) entry_bits[e] = n;
-  }
-}
-
-// Inclusive scan of one value per thread over a whole CTA; *total gets the
-// CTA's sum. warp_tot is 32 ints of shared memory.
-__device__ __forceinline__ int block_inclusive_scan(int v, int* warp_tot,
-                                                    int* total) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int incl = v;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int t = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += t;
-  }
-  if (lane == 31) warp_tot[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int nwarps = blockDim.x >> 5;
-    int w = lane < nwarps ? warp_tot[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(kFull, w, off);
-      if (lane >= off) w += t;
-    }
-    if (lane < nwarps) warp_tot[lane] = w;
-  }
-  __syncthreads();
-  const int result = incl + (warp > 0 ? warp_tot[warp - 1] : 0);
-  *total = warp_tot[(blockDim.x >> 5) - 1];
-  __syncthreads();  // warp_tot may be reused by the caller
-  return result;
-}
-
-// Per tile of kScanTile entries: counts -> tile-local exclusive offsets (in
-// place: each thread reads its items before writing them) + the tile sum.
-__global__ void __launch_bounds__(kScanThreads)
-scan_tiles_kernel(int* __restrict__ bits_to_offsets, int num_entries,
-                  int* __restrict__ tile_sums) {
-  __shared__ int warp_tot[32];
-  const int base = blockIdx.x * kScanTile + threadIdx.x * kScanItems;
-  int v[kScanItems];
-  int sum = 0;
-#pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    v[i] = base + i < num_entries ? bits_to_offsets[base + i] : 0;
-    sum += v[i];
-  }
-  int total;
-  int run = block_inclusive_scan(sum, warp_tot, &total) - sum;
-#pragma unroll
-  for (int i = 0; i < kScanItems; ++i) {
-    if (base + i < num_entries) bits_to_offsets[base + i] = run;
-    run += v[i];
-  }
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-// One CTA: tile sums -> exclusive tile offsets (in place) + total_bits.
-__global__ void __launch_bounds__(kScanThreads)
-scan_tile_sums_kernel(int* __restrict__ tile_sums, int num_tiles,
-                      int* __restrict__ total_bits) {
-  __shared__ int warp_tot[32];
-  int carry = 0;
-  for (int start = 0; start < num_tiles; start += kScanThreads) {
-    const int idx = start + threadIdx.x;
-    const int v = idx < num_tiles ? tile_sums[idx] : 0;
-    int total;
-    const int incl = block_inclusive_scan(v, warp_tot, &total);
-    if (idx < num_tiles) tile_sums[idx] = carry + incl - v;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *total_bits = carry;
-}
-
-// Bit offset of entry e (e == num_entries: the total) in the whole scan.
-__device__ __forceinline__ int scan_offset(const int* __restrict__ entry_offsets,
-                                           const int* __restrict__ tile_offsets,
-                                           const int* __restrict__ total_bits,
-                                           int e, int num_entries) {
-  return e < num_entries ? entry_offsets[e] + tile_offsets[e / kScanTile]
-                         : *total_bits;
-}
-
-// One thread per row (interval j % n_int of image j / n_int): its true bit
-// count.
-__global__ void interval_bits_kernel(const int* __restrict__ entry_offsets,
-                                     const int* __restrict__ tile_offsets,
-                                     const int* __restrict__ total_bits,
-                                     int num_entries, int per_image, int epi,
-                                     int n_int, int num_rows,
-                                     int* __restrict__ interval_bits) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= num_rows) return;
-  const int local = (j % n_int) * epi;
-  const int first = (j / n_int) * per_image + local;
-  const int end = first + (per_image - local > epi ? epi : per_image - local);
-  interval_bits[j] =
-      scan_offset(entry_offsets, tile_offsets, total_bits, end, num_entries) -
-      scan_offset(entry_offsets, tile_offsets, total_bits, first, num_entries);
-}
-
-__device__ __forceinline__ void put_bits(uint32_t* buf, int offset,
+// OR len MSB-first bits into buf at bit position pos (shared memory).
+__device__ __forceinline__ void put_bits(uint32_t* buf, int pos,
                                          uint32_t bits, int len) {
   if (len == 0) return;
-  const int w = offset >> 5;
-  const int end = (offset & 31) + len;
+  const int w = pos >> 5;
+  const int end = (pos & 31) + len;
   if (end <= 32) {
     atomicOr(&buf[w], bits << (32 - end));
   } else {
@@ -306,131 +165,356 @@ __device__ __forceinline__ void put_bits(uint32_t* buf, int offset,
   }
 }
 
-// blockIdx.y is the image, as in count_kernel; live is the image's live
-// entry count, clamped to per_image.
-__global__ void __launch_bounds__(kThreads)
-write_kernel(const int16_t* __restrict__ z, int per_image, int epi, int n_int,
-             int live, int hv, const int* __restrict__ init_dc,
-             const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
-             int lut_stride, const int* __restrict__ entry_offsets,
-             const int* __restrict__ tile_offsets, uint32_t* __restrict__ out,
-             int num_words) {
-  __shared__ int lut[kLutSize];
-  __shared__ uint32_t buf[kWarps][kEntryWords];
-  const int base = blockIdx.y * per_image;
-  load_luts(lut, dc_lut + blockIdx.y * lut_stride,
-            ac_lut + blockIdx.y * lut_stride);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  uint32_t* wbuf = buf[warp];
-  for (int local = blockIdx.x * kWarps + warp; local < live;
-       local += gridDim.x * kWarps) {
-    const int e = base + local;
-    const int row_index = blockIdx.y * n_int + local / epi;
-    const int first = base + local / epi * epi;
-    const SlotPair s = symbolize(z, e, first, hv, init_dc, lut, lane);
-    const int n = s.len0 + s.len1;
-    int incl = n;
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* status, int t) {
+  return *reinterpret_cast<const volatile unsigned long long*>(status + t);
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* status,
+                                             int t, unsigned long long v) {
+  *reinterpret_cast<volatile unsigned long long*>(status + t) = v;
+}
+
+// Warp 0: the row-relative bit offset of the tile's first entry, from the
+// statuses of tiles t - 1, t - 2, ... (32 a step, nearest first), which
+// all belong to this tile's image: the walk ends at the nearest prefix,
+// and the image's first tile publishes one.
+__device__ __forceinline__ int look_back(const unsigned long long* status,
+                                         int t, int image_first_tile,
+                                         int lane) {
+  int prefix = 0;
+  for (int pred = t - 1;; pred -= 32) {
+    const int idx = pred - lane;
+    unsigned long long s = kPrefix;
+    if (idx >= image_first_tile) {
+      do {
+        s = load_status(status, idx);
+      } while ((s >> 32) == 0);
+    }
+    const unsigned is_prefix = __ballot_sync(kFull, (s >> 32) == 2);
+    const int stop = is_prefix ? __ffs(is_prefix) - 1 : 31;
+    int v = lane <= stop ? static_cast<int>(static_cast<uint32_t>(s)) : 0;
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int t = __shfl_up_sync(kFull, incl, off);
-      if (lane >= off) incl += t;
-    }
-    const int entry_len = __shfl_sync(kFull, incl, 31);
-    if (entry_len == 0) continue;  // warp-uniform
-    const int offset = entry_offsets[e] + tile_offsets[e / kScanTile] -
-                       entry_offsets[first] - tile_offsets[first / kScanTile];
-    uint32_t* row = out + static_cast<size_t>(row_index) * num_words;
-    const int phase = offset & 31;
-    const int first_word = offset >> 5;
-    const int words = (phase + entry_len + 31) >> 5;
-    for (int w = lane; w < words; w += 32) wbuf[w] = 0;
-    __syncwarp();
-    const int start = phase + incl - n;  // this lane's first bit in wbuf
-    put_bits(wbuf, start, s.bits0, s.len0);
-    put_bits(wbuf, start + s.len0, s.bits1, s.len1);
-    __syncwarp();
-    for (int w = lane; w < words; w += 32) {
-      const int gw = first_word + w;
-      if (gw >= num_words) break;  // the row's capacity: dropped
-      const uint32_t val = __byte_perm(wbuf[w], 0, 0x0123);  // big-endian
-      if (w == 0 || w == words - 1) {
-        atomicOr(&row[gw], val);  // shared with the neighbouring entry
-      } else {
-        row[gw] = val;  // owned by this entry alone
-      }
-    }
-    __syncwarp();  // wbuf is reused by the next entry
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    prefix += v;
+    if (is_prefix) return prefix;
   }
 }
 
-// CTAs a grid row (one image) of warps_of_work entries: at most 16 CTAs an
-// SM over all images, at least one a row.
-int grid_for(int warps_of_work, int images) {
-  int device = 0, sms = 0;
-  if (cudaGetDevice(&device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
-          cudaSuccess) {
-    sms = 132;
+__global__ void __launch_bounds__(kThreads)
+entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
+               int live, int hv, const int* __restrict__ init_dc,
+               const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
+               int lut_stride, int tiles_per_image,
+               int* __restrict__ interval_bits, uint32_t* __restrict__ out,
+               int num_words, unsigned long long* status,
+               unsigned* __restrict__ counter) {
+  __shared__ int lut[kLutSize];
+  __shared__ __align__(16) int16_t ents[kTile][64];
+  __shared__ int halo_dc[kHalo];
+  __shared__ int dc_s[kTile];      // DC difference * 2 + chroma
+  __shared__ int row_s[kTile];     // row << 2 | ends the row << 1 | starts it
+  __shared__ int len_s[kTile];     // entry bit lengths
+  __shared__ int pos_s[kTile];     // entry's first bit in buf
+  __shared__ int seg_base[kTile + 1];  // segment's first word in buf, + end
+  __shared__ int seg_word[kTile];      // segment's first word in its row
+  __shared__ int seg_row[kTile];
+  __shared__ int meta[3];              // tile index, segments, words in buf
+  __shared__ uint32_t buf[kBufWords];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) meta[0] = static_cast<int>(atomicAdd(counter, 1u));
+  __syncthreads();
+  const int t = meta[0];
+  const int image = t / tiles_per_image;
+  const int first_local = (t % tiles_per_image) * kTile;
+  const int n = min(kTile, per_image - first_local);        // entries
+  const int n_live = max(0, min(n, live - first_local));    // live ones
+  const size_t image_base = static_cast<size_t>(image) * per_image;
+  const size_t first = image_base + first_local;
+  const int n_int = (per_image + epi - 1) / epi;
+
+  // Tables, the tile's live entries and the DCs before it.
+  const int* dc = dc_lut + image * lut_stride;
+  const int* ac = ac_lut + image * lut_stride;
+  for (int i = threadIdx.x; i < kLutSize; i += kThreads) {
+    lut[i] = i < 512 ? dc[i] : ac[i - 512];
   }
-  const int ctas = (warps_of_work + kWarps - 1) / kWarps;
-  const int cap = 16 * sms / images > 1 ? 16 * sms / images : 1;
-  return ctas < cap ? ctas : cap;
+  if ((reinterpret_cast<uintptr_t>(z) & 15) == 0) {
+    const uint4* src = reinterpret_cast<const uint4*>(z + first * 64);
+    uint4* dst = reinterpret_cast<uint4*>(ents);
+    for (int i = threadIdx.x; i < n_live * 8; i += kThreads) dst[i] = src[i];
+  } else {
+    const uint32_t* src = reinterpret_cast<const uint32_t*>(z + first * 64);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(ents);
+    for (int i = threadIdx.x; i < n_live * 32; i += kThreads) dst[i] = src[i];
+  }
+  if (threadIdx.x < kHalo && n_live > 0) {
+    const int l = first_local - kHalo + threadIdx.x;
+    if (l >= 0) halo_dc[threadIdx.x] = z[(image_base + l) * 64];
+  }
+  __syncthreads();
+
+  // One thread an entry: its row (index, and whether the entry starts or
+  // ends it) and its DC difference along its component's predictor chain:
+  // the previous entry of the component lies at a static distance, and a
+  // chain's first entry in its row takes init_dc.
+  if (threadIdx.x < n) {
+    const int j = threadIdx.x, local = first_local + j;
+    const int row = local / epi, row_first = row * epi;
+    row_s[j] = (image * n_int + row) << 2 |
+               (local + 1 == min(row_first + epi, per_image)) << 1 |
+               (local == row_first);
+    if (j < n_live) {
+      const int bpm = hv + 2, pos = local % bpm;
+      const int prev =
+          local - (pos >= hv ? bpm : (pos == 0 ? bpm - hv + 1 : 1));
+      int pred;
+      if (prev < row_first) {
+        pred = init_dc[pos < hv ? 0 : pos - hv + 1];
+      } else if (prev >= first_local) {
+        pred = ents[prev - first_local][0];
+      } else {
+        pred = halo_dc[prev - (first_local - kHalo)];
+      }
+      dc_s[j] = (ents[j][0] - pred) * 2 + (pos >= hv);
+    }
+  }
+  __syncthreads();
+
+  // Symbolize each live entry once; codes stay in registers.
+  uint32_t code0[kPerWarp], code1[kPerWarp];
+  int lens[kPerWarp];  // len0 | len1 << 6 | lane's offset in the entry << 12
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int j = warp + kWarps * i;
+    lens[i] = 0;
+    if (j < n_live) {  // warp-uniform
+      int len0, len1;
+      symbolize(ents[j], dc_s[j], lut, lane, code0[i], len0, code1[i], len1);
+      const int bits = len0 + len1;
+      int incl = bits;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += u;
+      }
+      lens[i] = len0 | len1 << 6 | (incl - bits) << 12;
+      if (lane == 31) len_s[j] = incl;
+    } else if (lane == 0) {
+      len_s[j] = 0;
+    }
+  }
+  __syncthreads();
+
+  if (warp == 0) {
+    // Segmented scan of the lengths at row starts: lane owns entries
+    // 2 * lane and 2 * lane + 1 (none past n).
+    const int j0 = 2 * lane, j1 = j0 + 1;
+    const int L0 = j0 < n ? len_s[j0] : 0;
+    const int L1 = j1 < n ? len_s[j1] : 0;
+    const int r0 = j0 < n ? row_s[j0] : 0;  // row << 2 | ends << 1 | starts
+    const int r1 = j1 < n ? row_s[j1] : 0;
+    const bool f0 = r0 & 1, f1 = r1 & 1;
+    bool f = f0 || f1;
+    int v = f1 ? L1 : L0 + L1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const bool pf = __shfl_up_sync(kFull, f, off);
+      const int pv = __shfl_up_sync(kFull, v, off);
+      if (lane >= off) {
+        if (!f) v += pv;
+        f = f || pf;
+      }
+    }
+    bool ef = __shfl_up_sync(kFull, f, 1);  // exclusive, before entry j0
+    int ev = __shfl_up_sync(kFull, v, 1);
+    if (lane == 0) {
+      ef = false;
+      ev = 0;
+    }
+    const bool tile_has_start = __shfl_sync(kFull, f, 31);
+    const int tile_sum = __shfl_sync(kFull, v, 31);  // since the last start
+    const bool leading = !(row_s[0] & 1);  // entry 0 continues a row
+    int lead = 0;  // row offset of entry 0 when it continues a row
+    if (!leading || tile_has_start) {
+      if (lane == 0) store_status(status, t, kPrefix | tile_sum);
+    } else if (lane == 0) {
+      store_status(status, t, kAggregate | tile_sum);
+    }
+    if (leading) {
+      lead = look_back(status, t, image * tiles_per_image, lane);
+      if (!tile_has_start && lane == 0) {
+        store_status(status, t, kPrefix | (lead + tile_sum));
+      }
+    }
+    // Row offsets: entries before the tile's first row start continue the
+    // leading row from `lead`; the others count from their row's start.
+    const int off0 = f0 ? 0 : (ef ? ev : lead + ev);
+    const bool g1 = ef || f0;  // a row start at or before entry j0
+    const int ex1 = f0 ? L0 : ev + L0;
+    const int off1 = f1 ? 0 : (g1 ? ex1 : lead + ex1);
+    // Rows ending here report their length.
+    if (r0 & 2) interval_bits[r0 >> 2] = off0 + L0;
+    if (r1 & 2) interval_bits[r1 >> 2] = off1 + L1;
+    // Segments: a new one starts at every row start after entry 0.
+    const int s0 = (f0 && j0 > 0) ? 1 : 0;
+    const int s1 = f1 ? 1 : 0;
+    int seg_incl = s0 + s1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(kFull, seg_incl, off);
+      if (lane >= off) seg_incl += u;
+    }
+    const int seg0 = seg_incl - s1;  // segment of entry j0
+    const int seg1 = seg_incl;       // segment of entry j1
+    // A segment ends at an entry followed by a row start or by the tile's
+    // end; its bits run from its first entry's offset (0 at a row start,
+    // `lead` for the leading row) to the end entry's offset plus length.
+    const bool e0 = j0 < n && (j1 >= n || f1);
+    const bool e1 = j1 < n && (j1 + 1 >= n || (r1 & 2));
+    int words0 = 0, words1 = 0, start0 = 0, start1 = 0;
+    if (e0) {
+      start0 = (seg0 == 0 && leading) ? lead : 0;
+      const int end = off0 + L0;
+      words0 = end > start0 ? ((end + 31) >> 5) - (start0 >> 5) : 0;
+    }
+    if (e1) {
+      start1 = (seg1 == 0 && leading) ? lead : 0;
+      const int end = off1 + L1;
+      words1 = end > start1 ? ((end + 31) >> 5) - (start1 >> 5) : 0;
+    }
+    int w_incl = words0 + words1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int u = __shfl_up_sync(kFull, w_incl, off);
+      if (lane >= off) w_incl += u;
+    }
+    const int w_excl = w_incl - words0 - words1;
+    if (e0) {
+      seg_base[seg0] = w_excl;
+      seg_word[seg0] = start0 >> 5;
+      seg_row[seg0] = r0 >> 2;
+    }
+    if (e1) {
+      seg_base[seg1] = w_excl + words0;
+      seg_word[seg1] = start1 >> 5;
+      seg_row[seg1] = r1 >> 2;
+    }
+    const int n_seg = __shfl_sync(kFull, seg_incl, 31) + 1;
+    const int total = __shfl_sync(kFull, w_incl, 31);
+    if (lane == 0) {
+      seg_base[n_seg] = total;
+      meta[1] = n_seg;
+      meta[2] = total;
+    }
+    __syncwarp();
+    if (j0 < n) pos_s[j0] = seg_base[seg0] * 32 + (off0 - seg_word[seg0] * 32);
+    if (j1 < n) pos_s[j1] = seg_base[seg1] * 32 + (off1 - seg_word[seg1] * 32);
+  } else {
+    // Meanwhile the other warps clear the packing buffer.
+    for (int i = threadIdx.x - 32; i < kBufWords; i += kThreads - 32) {
+      buf[i] = 0;
+    }
+  }
+  __syncthreads();
+
+  // Pack every slot's code at its final place in buf.
+#pragma unroll
+  for (int i = 0; i < kPerWarp; ++i) {
+    const int j = warp + kWarps * i;
+    if (j < n_live) {
+      const int len0 = lens[i] & 63, len1 = (lens[i] >> 6) & 63;
+      const int at = pos_s[j] + (lens[i] >> 12);
+      put_bits(buf, at, code0[i], len0);
+      put_bits(buf, at + len0, code1[i], len1);
+    }
+  }
+  __syncthreads();
+
+  // Store whole words, coalesced; a segment's end words are ORed.
+  const int n_seg = meta[1], total = meta[2];
+  for (int w = threadIdx.x; w < total; w += kThreads) {
+    int lo = 0, hi = n_seg - 1;  // the last segment starting at or before w
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (seg_base[mid] <= w) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    const int gw = seg_word[lo] + (w - seg_base[lo]);
+    if (gw >= num_words) continue;  // the row's capacity: dropped
+    const uint32_t val = __byte_perm(buf[w], 0, 0x0123);  // big-endian
+    uint32_t* dst = out + static_cast<size_t>(seg_row[lo]) * num_words + gw;
+    if (w == seg_base[lo] || w == seg_base[lo + 1] - 1) {
+      if (val) atomicOr(dst, val);  // shared with a neighbouring tile
+    } else {
+      *dst = val;  // owned by this tile alone
+    }
+  }
+}
+
+// Ints of the wrapper's buffer: the output rows, padding to an even index,
+// an 8-byte status word a tile and the tile counter (kernels/entropy.py
+// sizes it the same way).
+long long buffer_ints(int images, int per_image, int epi, int num_words) {
+  const long long rows =
+      static_cast<long long>(images) * ((per_image + epi - 1) / epi);
+  const long long out_ints = rows * num_words;
+  const long long tiles =
+      static_cast<long long>(images) * ((per_image + kTile - 1) / kTile);
+  return out_ints + (out_ints & 1) + 2 * tiles + 2;
 }
 
 }  // namespace
 
 // z: (num_entries, 64) int16 scan entries, raw DC in slot 0, 4-byte aligned:
 // num_entries / per_image images, each cut into n_int = ceil(per_image /
-// epi) intervals of epi entries (a multiple of the MCU's hv + 2 blocks);
-// entries at an image's index >= live_entries (clamped to [0, per_image] by
-// the caller) emit nothing. init_dc: 3 int32 DC predictors (Y, Cb, Cr) of
-// every interval's first entries. dc_lut, ac_lut: (2, 256) int32 packed
-// tables (row 0 luma, row 1 chroma) for image 0, image i's lut_stride * i
-// ints further on. Scratch: entry_bits (num_entries int32), tile_sums
-// (ceil(num_entries / 4096) int32), total_bits (1 int32). Outputs:
-// interval_bits (one int32 per row), out (num_words u32 per row,
-// byte-swapped big-endian words). Returns the first cudaError_t met (0 on
+// epi) rows of epi entries (a multiple of the MCU's hv + 2 blocks);
+// entries at an image's index >= live (clamped to [0, per_image] by the
+// caller) emit nothing. init_dc: 3 int32 DC predictors (Y, Cb, Cr) of every
+// row's first entries. dc_lut, ac_lut: (2, 256) int32 packed tables (row 0
+// luma, row 1 chroma) for image 0, image i's lut_stride * i ints further
+// on. buffer: int32, the output rows (rows * num_words u32, byte-swapped
+// big-endian words), then, from the next even index, one 8-byte status word
+// per tile (ceil(per_image / 64) tiles an image) and the 4-byte tile
+// counter (buffer_ints), all zeroed here by one memset.
+// interval_bits: one int32 per row. Returns the first cudaError_t met (0 on
 // success).
 extern "C" int jt_entropy_encode(const int16_t* z, int num_entries,
-                                 int per_image, int epi, int live_entries,
-                                 int hv, const int* init_dc, const int* dc_lut,
+                                 int per_image, int epi, int live, int hv,
+                                 const int* init_dc, const int* dc_lut,
                                  const int* ac_lut, int lut_stride,
-                                 int* entry_bits, int* tile_sums,
-                                 int* total_bits, int* interval_bits,
-                                 uint32_t* out, int num_words, void* stream) {
+                                 int* interval_bits, int32_t* buffer,
+                                 int num_words, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_entries <= 0 || per_image <= 0 || epi <= 0 ||
-      num_entries % per_image != 0 || num_entries / per_image > 65535) {
+  if (num_entries <= 0 || per_image <= 0 || epi <= 0 || num_words <= 0 ||
+      num_entries % per_image != 0 || hv + 2 > kHalo) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int images = num_entries / per_image;
-  const int n_int = (per_image + epi - 1) / epi;
-  const int num_rows = images * n_int;
+  const int tiles_per_image = (per_image + kTile - 1) / kTile;
+  const long long rows =
+      static_cast<long long>(images) * ((per_image + epi - 1) / epi);
+  const long long out_ints = rows * num_words;
+  const long long status_at = out_ints + (out_ints & 1);
+  const long long tiles = static_cast<long long>(images) * tiles_per_image;
+  if (tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaMemsetAsync(
-      out, 0, sizeof(uint32_t) * num_words * static_cast<size_t>(num_rows),
+      buffer, 0,
+      sizeof(int32_t) *
+          static_cast<size_t>(buffer_ints(images, per_image, epi, num_words)),
       st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(grid_for(per_image, images), images);
-  const int num_tiles = (num_entries + kScanTile - 1) / kScanTile;
-  count_kernel<<<grid, kThreads, 0, st>>>(z, per_image, epi, live_entries, hv,
-                                          init_dc, dc_lut, ac_lut, lut_stride,
-                                          entry_bits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_tiles_kernel<<<num_tiles, kScanThreads, 0, st>>>(entry_bits,
-                                                        num_entries, tile_sums);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  scan_tile_sums_kernel<<<1, kScanThreads, 0, st>>>(tile_sums, num_tiles,
-                                                    total_bits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  interval_bits_kernel<<<(num_rows + 255) / 256, 256, 0, st>>>(
-      entry_bits, tile_sums, total_bits, num_entries, per_image, epi, n_int,
-      num_rows, interval_bits);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if (live_entries == 0) return 0;
-  write_kernel<<<dim3(grid_for(live_entries, images), images), kThreads, 0,
-                 st>>>(z, per_image, epi, n_int, live_entries, hv, init_dc,
-                       dc_lut, ac_lut, lut_stride, entry_bits, tile_sums, out,
-                       num_words);
+  unsigned long long* status =
+      reinterpret_cast<unsigned long long*>(buffer + status_at);
+  unsigned* counter = reinterpret_cast<unsigned*>(status + tiles);
+  entropy_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
+      z, per_image, epi, live, hv, init_dc, dc_lut, ac_lut, lut_stride,
+      tiles_per_image, interval_bits, reinterpret_cast<uint32_t*>(buffer),
+      num_words, status, counter);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,9 @@ machine imports every module and has no nvcc.
 results must equal the plain PyTorch versions bit for bit, which rules out
 contracted multiply-adds and approximate division (a kernel that is not
 exact by contract spells its fused multiply-adds out). A failed build
-raises with nvcc's stderr; there is no fallback.
+raises with nvcc's stderr; there is no fallback. ptxas reports each
+kernel's registers, spills and shared memory (-Xptxas=-v); build() keeps
+the reports of the sources it compiled (ptxas_usage reads them).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import dataclasses
 import functools
 import glob
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -32,11 +35,12 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_reports: dict[str, str] = {}  # source name -> nvcc's stderr (ptxas -v)
 
 
 def names() -> list[str]:
@@ -95,6 +99,7 @@ def build(which: list[str] | None = None) -> None:
         _, stderr = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, lib_path(name))
+            _reports[name] = stderr
             continue
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -103,6 +108,27 @@ def build(which: list[str] | None = None) -> None:
         )
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def ptxas_usage(name: str) -> list[str]:
+    """One line per kernel of csrc/<name>.cu from the last build()'s ptxas
+    report: "<kernel>: <registers>, <spill stores>, <spill loads>, <smem>"
+    (empty if build() did not compile it in this process)."""
+    lines, kernel, spills = [], None, ""
+    for line in _reports.get(name, "").splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            found = re.findall(r"[A-Za-z_]+_kernel", entry.group(1))
+            kernel = found[-1] if found else entry.group(1)
+        elif "spill stores" in line:
+            spills = ", ".join(part.strip() for part in line.split(",")[1:])
+        elif kernel and "Used" in line and "registers" in line:
+            used = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            lines.append(f"{kernel}: {used} registers, {spills}, "
+                         f"{smem.group(1) if smem else 0} bytes smem")
+            kernel = None
+    return lines
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -27,11 +27,14 @@ import ctypes
 
 import torch
 
+from jpeg_encoder_torch import constants
 from jpeg_encoder_torch.kernels._build import Kernel
 from jpeg_encoder_torch.ops import dct as dct_ops
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# K1's operands are host pointers (constants.realdct_kernel_operands),
+# copied into the kernel's by-value parameters at launch.
 REALDCT = Kernel(
     "realdct", "jt_realdct_planes", (_P, _I, _I, _P, _P, _I, _I) + (_P,) * 7,
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:362",
@@ -47,7 +50,7 @@ BINDCT = Kernel(
 )
 # K6a (:80); K6b (dct_pallas.py:156) computes the same function.
 REALDCT_BLOCKS = Kernel(
-    "realdct_blocks", "jt_realdct_blocks", (_P, _I) + (_P,) * 6,
+    "realdct_blocks", "jt_realdct_blocks", (_P, _I, _I) + (_P,) * 7,
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:80", lib="realdct",
 )
 BINDCT_BLOCKS = Kernel(
@@ -97,6 +100,14 @@ def _launch(kernel: Kernel, y_plane, cb_plane, cr_plane, *operands):
     return out[:ny], out[ny : ny + nc], out[ny + nc :]
 
 
+def _realdct_operands(quality: int | None) -> tuple[int, ...]:
+    """Host addresses of K1's compact operands (basis, scale, q_luma,
+    q_chroma, zigzag), which the cache keeps alive."""
+    return tuple(
+        arr.ctypes.data for arr in constants.realdct_kernel_operands(quality)
+    )
+
+
 def real_dct_quant_planes_zigzag(
     y_plane: torch.Tensor,
     cb_plane: torch.Tensor,
@@ -110,13 +121,8 @@ def real_dct_quant_planes_zigzag(
         return dct_ops.real_dct_quant_planes_zigzag(
             y_plane, cb_plane, cr_plane, quality
         )
-    a_steps, b_steps, scale, q_luma, q_chroma = dct_ops.device_constants(
-        quality, y_plane.device
-    )
     return _launch(
-        REALDCT, y_plane, cb_plane, cr_plane,
-        a_steps.data_ptr(), b_steps.data_ptr(), scale.data_ptr(),
-        q_luma.data_ptr(), q_chroma.data_ptr(),
+        REALDCT, y_plane, cb_plane, cr_plane, *_realdct_operands(quality)
     )
 
 
@@ -201,12 +207,8 @@ def real_dct_quant_zigzag(
     _check_blocks(blocks)
     if blocks.device.type == "cpu":
         return dct_ops.real_dct_quant_zigzag(blocks, is_luma, quality)
-    a_steps, b_steps, scale, q_luma, q_chroma = dct_ops.device_constants(
-        quality, blocks.device
-    )
     return _launch_blocks(
-        REALDCT_BLOCKS, blocks, a_steps.data_ptr(), b_steps.data_ptr(),
-        scale.data_ptr(), (q_luma if is_luma else q_chroma).data_ptr(),
+        REALDCT_BLOCKS, blocks, int(not is_luma), *_realdct_operands(quality)
     )
 
 

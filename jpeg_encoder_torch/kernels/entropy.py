@@ -1,19 +1,20 @@
 """Entropy kernel wrapper (K4): csrc/entropy.cu, with its plain version.
 
 Replaces jpeg_encoder_tpu/kernels/entropy_pallas.py::encode_entropy_fused.
-On CUDA tensors the wrapper launches the hand-written three-pass kernel
-(count, scan, write) or raises; on CPU tensors it runs the plain
-symbolizer and packer of ops/entropy.py, which is the kernel's spec. The
-Huffman tables are operands, so per-image optimized tables need no new
-kernel. One launch codes the unbroken scan or every restart interval of a
-restart-framed one (the TPU kernel under vmap), each into its own row, and
-the same for every image of a batch, with one table pair for all images or
-one an image.
+On CUDA tensors the wrapper launches the hand-written one-pass kernel (a
+scan with decoupled look-back, after one memset) or raises; on CPU tensors
+it runs the plain symbolizer and packer of ops/entropy.py, which is the
+kernel's spec. The Huffman tables are operands, so per-image optimized
+tables need no new kernel. One launch codes the unbroken scan or every
+restart interval of a restart-framed one (the TPU kernel under vmap), each
+into its own row, and the same for every image of a batch, with one table
+pair for all images or one an image.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -24,12 +25,20 @@ from jpeg_encoder_torch.ops import entropy as entropy_ops
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTROPY = Kernel(
     "entropy", "jt_entropy_encode",
-    (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I) + (_P,) * 5 + (_I, _P),
+    (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P),
     replaces="jpeg_encoder_tpu/kernels/entropy_pallas.py:570",
 )
-_SCAN_TILE = 4096  # entries per scan tile (kScanTile in entropy.cu)
-# The kernel's bit offsets are int32 and one scan spans the whole batch.
+_TILE = 64  # entries a tile (kTile in entropy.cu)
+# The kernel's bit offsets are int32 and relative to their row (an image or
+# a restart interval), so one image's worst case must stay below this.
 OFFSET_LIMIT_BITS = 2**31
+
+
+@functools.lru_cache(maxsize=8)
+def _zero_dc(device: torch.device) -> torch.Tensor:
+    """The default init_dc on device, made once: a call then runs no
+    device operation but the kernel's memset and the kernel."""
+    return torch.zeros(3, dtype=torch.int32, device=device)
 
 
 def worst_case_bits(geom: FrameGeometry) -> int:
@@ -57,11 +66,6 @@ def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> int:
             f"geometry's {per_image}"
         )
     images = z.shape[0] // per_image
-    if images * worst_case_bits(geom) >= OFFSET_LIMIT_BITS:
-        raise ValueError(
-            f"{images} images of {geom.width}x{geom.height}: their worst-case "
-            "bit count does not fit the kernel's int32 offsets"
-        )
     if capacity_bytes <= 0 or capacity_bytes % 4:
         raise ValueError(
             "capacity_bytes must be a positive multiple of 4, got "
@@ -140,7 +144,7 @@ def encode_entries(
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if init_dc is None:
-        init_dc = torch.zeros(3, dtype=torch.int32, device=device)
+        init_dc = _zero_dc(device)
     if luts is None:
         luts = entropy_ops.device_luts(device)
     dc_lut, ac_lut = luts
@@ -155,24 +159,23 @@ def encode_entries(
     epi = epi or per_image
     n_rows = images * -(-per_image // epi)
     num_words = capacity_bytes // 4
-    entry_bits = torch.empty(num_entries, dtype=torch.int32, device=device)
-    tile_sums = torch.empty(
-        -(-num_entries // _SCAN_TILE), dtype=torch.int32, device=device
-    )
-    total_bits = torch.empty(1, dtype=torch.int32, device=device)
     bits = torch.empty(n_rows, dtype=torch.int32, device=device)
-    words = torch.empty((n_rows, num_words), dtype=torch.int32, device=device)
+    # One buffer, zeroed by the kernel's one memset: the output rows, then
+    # (8-byte aligned) a status word per tile and the tile counter.
+    out_ints = n_rows * num_words
+    tiles = images * -(-per_image // _TILE)
+    buffer = torch.empty(out_ints + out_ints % 2 + 2 * tiles + 2,
+                         dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         ENTROPY.launch(
             z.data_ptr(), num_entries, per_image, epi, live,
             geom.h_factor * geom.v_factor, init_dc.data_ptr(),
             dc_lut.data_ptr(), ac_lut.data_ptr(), lut_stride,
-            entry_bits.data_ptr(), tile_sums.data_ptr(), total_bits.data_ptr(),
-            bits.data_ptr(), words.data_ptr(), num_words,
+            bits.data_ptr(), buffer.data_ptr(), num_words,
             torch.cuda.current_stream(device).cuda_stream,
         )
     # The kernel stores byte-swapped words: their bytes are the stream.
-    data = words.view(torch.uint8)
+    data = buffer[:out_ints].view(n_rows, num_words).view(torch.uint8)
     if entries_per_interval is None:
         return data[0], bits[0]
     return data, bits

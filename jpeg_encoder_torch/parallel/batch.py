@@ -13,8 +13,9 @@ written out (pipeline.scan_entries on (B, H, W, 3)):
   pair for all or, for optimized Huffman, one per image.
 
 encode_batch cuts the batch into chunks (chunk_size_images): an input-byte
-budget and an image cap, and the bound of K4's int32 bit offsets, which
-one scan over the whole chunk shares. Each chunk is dispatch_chunk (device
+budget and an image cap (K4's int32 bit offsets are relative to a row, an
+image or a restart interval, so they bound the image, not the chunk). Each
+chunk is dispatch_chunk (device
 work, enqueued, nothing synchronised), fetch_chunk (one copy of the bit
 counts, then one copy of every row up to the longest payload) and
 assemble_chunk (JFIF files on the host; a member whose payload overflowed
@@ -50,15 +51,9 @@ MAX_IMAGES_PER_CHUNK = 64
 
 def chunk_size_images(geom: FrameGeometry) -> int:
     """Images per dispatch for this geometry: at most CHUNK_INPUT_BUDGET
-    bytes of input and MAX_IMAGES_PER_CHUNK images, and few enough that the
-    chunk's worst-case scan stays below K4's 2^31-bit offset bound; always
-    at least one image (K4 refuses a single image past the bound)."""
+    bytes of input and MAX_IMAGES_PER_CHUNK images; always at least one."""
     per_image = geom.height * geom.width * 3
-    offset_cap = (entropy_kernel.OFFSET_LIMIT_BITS - 1) // (
-        entropy_kernel.worst_case_bits(geom)
-    )
-    return max(1, min(MAX_IMAGES_PER_CHUNK, CHUNK_INPUT_BUDGET // per_image,
-                      offset_cap))
+    return max(1, min(MAX_IMAGES_PER_CHUNK, CHUNK_INPUT_BUDGET // per_image))
 
 
 def encode_batch(

@@ -11,7 +11,8 @@ against jpeg_encoder_tpu.parallel.batch.encode_batch on a two-device mesh
 and the small ones against the oracle. The batched pieces are held to
 their per-image forms: the front, the marshal, the statistics and K4's
 plain version over per-image rows, intervals and tables; and the chunk
-size to K4's 2^31-bit offset bound, at its boundary.
+size and K4's 2^31-bit offset bound (per image, not per chunk) at its
+boundary.
 """
 
 import dataclasses
@@ -166,30 +167,35 @@ def test_chunk_size_defaults():
 )
 def test_chunks_stay_under_the_offset_bound(ratio, size, budget_images,
                                             offset_images, monkeypatch):
-    """K4 sums one chunk's bits in int32: chunk_size_images caps a chunk at
-    the most images whose worst case stays below 2^31 bits, and the K4
-    wrapper refuses one image more, before any work (the operand is a
-    broadcast view: nothing of that size is allocated)."""
+    """K4's int32 bit offsets are relative to a row (an image or a restart
+    interval), so the bound is one image's worst case, not the chunk's:
+    chunk_size_images is the input budget alone, and the K4 wrapper's
+    checks take more images than one int32 scan over the whole chunk could
+    hold (checked only: nothing is encoded)."""
     geom = EncoderConfig(subsampling_ratio=ratio).geometry(*size)
     worst = entropy_kernel.worst_case_bits(geom)
+    assert worst < 2**31
     assert offset_images * worst < 2**31 <= (offset_images + 1) * worst
-    assert batch.chunk_size_images(geom) == min(budget_images, offset_images)
+    assert batch.chunk_size_images(geom) == budget_images
     monkeypatch.setattr(batch, "CHUNK_INPUT_BUDGET", 1 << 40)
-    assert batch.chunk_size_images(geom) == min(64, offset_images)
-    block = torch.zeros((1, 64), dtype=torch.int16)
-    too_many = block.expand((offset_images + 1) * geom.num_scan_entries, 64)
-    with pytest.raises(ValueError, match="int32 offsets"):
-        entropy_kernel.encode_entries(
-            too_many, geom, 1024,
-            entries_per_interval=geom.num_scan_entries)
+    assert batch.chunk_size_images(geom) == 64
+    many = torch.zeros(((offset_images + 1) * geom.num_scan_entries, 64),
+                       dtype=torch.int16)
+    assert entropy_kernel._check_operands(
+        many, geom, 1024, None, None, geom.num_scan_entries
+    ) == offset_images + 1
 
 
 def test_single_image_past_the_offset_bound_is_one_chunk():
-    """A frame whose own worst case passes 2^31 bits gets a chunk of one,
-    which K4 refuses as it refuses that image alone."""
+    """A frame whose own worst case passes 2^31 bits gets a chunk of one
+    (its input passes the budget), which K4 refuses before any work."""
     geom = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(8192, 8192)
     assert entropy_kernel.worst_case_bits(geom) >= 2**31
     assert batch.chunk_size_images(geom) == 1
+    block = torch.zeros((1, 64), dtype=torch.int16)
+    one = block.expand(geom.num_scan_entries, 64)
+    with pytest.raises(ValueError, match="int32 offsets"):
+        entropy_kernel.encode_entries(one, geom, 1024)
 
 
 # The JAX package's batch on a two-device CPU mesh (its jitted program is

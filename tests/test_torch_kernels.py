@@ -7,7 +7,9 @@ on the card they run with
 
 (--noconftest: tests/conftest.py configures JAX, which that machine lacks.)
 
-They build csrc/*.cu, launch each kernel at small and at 1080p shapes and
+They build csrc/*.cu, launch each kernel at small and at 1080p shapes (K1
+also on extreme content, K4 also at its 64-entry tile boundaries and
+twenty times over one 4K noise image) and
 require exact equality with the plain version run on CPU tensors, except
 K2 (--fast-dct), which is held to max |diff| 1 at mismatch rates below
 1e-3 against its plain version and 5e-4 against the exact K1: K4 also over
@@ -31,6 +33,7 @@ from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.kernels import pack as pack_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
+from jpeg_encoder_torch.ops import sample
 from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_torch.parallel import batch
 from jpeg_encoder_torch.utils import corpus
@@ -130,6 +133,33 @@ def test_dct_kernel_matches_plain(cuda, shapes, quality):
         assert torch.equal(g.cpu(), w)
 
 
+RATIOS = [(4, 2, 0), (4, 2, 2), (4, 4, 4)]
+EXTREMES = ("zeros", "255", "checkerboard", "one-block-row")
+
+
+def extreme_planes(content, ratio, seed=0):
+    """Padded planes [Y, Cb, Cr] of extreme DCT content at `ratio`: all 0,
+    all 255, a 0/255 pixel checkerboard (level-shifted -128/+127, the
+    largest AC energy), random pixels ("random"), or random pixels in a
+    plane one block high (1 x 37 blocks). NumPy uint8 arrays."""
+    height, width = (8, 296) if content == "one-block-row" else (48, 64)
+    c_h = height if ratio[2] else -(-height // 16) * 8
+    c_w = width if ratio[1] == 4 else -(-width // 16) * 8
+    rng = np.random.default_rng(seed)
+    planes = []
+    for shape in ((height, width), (c_h, c_w), (c_h, c_w)):
+        if content == "zeros":
+            planes.append(np.zeros(shape, np.uint8))
+        elif content == "255":
+            planes.append(np.full(shape, 255, np.uint8))
+        elif content == "checkerboard":
+            r, c = np.indices(shape)
+            planes.append((((r + c) % 2) * 255).astype(np.uint8))
+        else:
+            planes.append(rng.integers(0, 256, shape, dtype=np.uint8))
+    return planes
+
+
 def _random_planes(shapes, seed):
     rng = np.random.default_rng(seed)
     planes = [rng.integers(0, 256, shapes[0], dtype=np.uint8)] + [
@@ -183,6 +213,27 @@ def test_fastdct_kernel_within_tolerance(cuda, shapes, quality):
         d = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
         assert int(d.max()) <= 1
         assert float((d > 0).float().mean()) <= rate
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", [None, 90, 100])
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("content", EXTREMES)
+def test_dct_kernel_extreme_content(cuda, content, ratio, quality):
+    """K1 exactly against its plain version on flat, saturated,
+    checkerboard and one-block-high planes, and K6a against K1 on the same
+    planes' blocks (luma on Y, chroma on Cb)."""
+    cpu = [torch.from_numpy(p) for p in extreme_planes(content, ratio)]
+    dev = [p.to(cuda) for p in cpu]
+    got = dct_kernel.real_dct_quant_planes_zigzag(*dev, quality)
+    torch.cuda.synchronize()
+    want = dct_kernel.real_dct_quant_planes_zigzag(*cpu, quality)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for i in (0, 1):
+        blocks = sample.blockify(dev[i]).contiguous()
+        per_block = dct_kernel.real_dct_quant_zigzag(blocks, i == 0, quality)
+        assert torch.equal(per_block, got[i].to(torch.int32))
 
 
 @pytest.mark.cuda
@@ -451,6 +502,92 @@ def test_entropy_kernel_batch_matches_plain(cuda, ratio, interval):
         assert bits.shape[0] == 3 * -(-geom.num_scan_entries // epi)
         assert torch.equal(bits.cpu(), want_bits)
         assert torch.equal(got.cpu(), want)
+
+
+def _tile_cases(geom, cap):
+    """(live_entries, capacity) pairs at K4's 64-entry tiles: all live; a
+    live suffix ending mid-tile; capacities of 4096 and 8 bytes a row
+    (overflowing inside a tile)."""
+    mid = min(geom.num_scan_entries, 64 * 3 + 37)
+    return ((None, cap), (mid, cap), (None, 4096), (None, 8))
+
+
+def _check_k4(cuda, z, geom, capacity, **args):
+    """K4 on the card against its plain version on the CPU; one launch."""
+    want, want_bits = entropy_kernel.encode_entries(z, geom, capacity, **args)
+    dev_args = dict(args)
+    if args.get("luts") is not None:
+        dev_args["luts"] = tuple(t.to(cuda) for t in args["luts"])
+    before = entropy_kernel.ENTROPY.launches
+    got, bits = entropy_kernel.encode_entries(z.to(cuda), geom, capacity,
+                                              **dev_args)
+    torch.cuda.synchronize()
+    assert entropy_kernel.ENTROPY.launches == before + 1
+    assert torch.equal(bits.cpu(), want_bits)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interval", [1, 7, 17, 120, 10000])
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_entropy_kernel_tile_boundaries(cuda, ratio, interval):
+    """K4's rows against its 64-entry tiles at 517x333: intervals of 1, 7,
+    17, 120 and 10000 MCUs (rows shorter than, about as long as, and
+    longer than a tile, and one row), each with every entry live, live
+    entries ending mid-tile, and 4096- and 8-byte rows."""
+    config = EncoderConfig(subsampling_ratio=ratio)
+    z, geom = _corpus_entries(config, cuda, size=(517, 333))
+    epi = entropy_ops.entries_per_interval(geom, interval)
+    cap = pipeline.restart_default_capacity_bytes(geom, interval)
+    for live, capacity in _tile_cases(geom, cap):
+        _check_k4(cuda, z, geom, capacity, live_entries=live,
+                  entries_per_interval=epi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("size", [(8, 8), (40, 24), (517, 333)])
+def test_entropy_kernel_batch_tiles(cuda, ratio, size):
+    """A batch whose images end mid-tile (an 8x8 image is one partial
+    tile; 40x24 fewer entries than a tile; 517x333 an image of 65 tiles,
+    the last partial), unbroken and every 7 MCUs, with Annex-K and
+    per-image tables, all live and live ending mid-tile, at a fitting
+    capacity and at 8 bytes a row."""
+    config = EncoderConfig(subsampling_ratio=ratio)
+    z, geom = _batch_entries(config, cuda, size, count=4)
+    assert geom.num_scan_entries % 64
+    for restart in (None, 7):
+        epi = (geom.num_scan_entries if restart is None
+               else entropy_ops.entries_per_interval(geom, restart))
+        hists = entropy_ops.symbol_histograms(z, geom, restart)
+        luts = [pipeline.optimal_specs_and_luts(h.numpy(), "cpu")[1]
+                for h in hists]
+        per_image = tuple(torch.stack([t[i] for t in luts]) for i in (0, 1))
+        cap = pipeline.restart_default_capacity_bytes(geom, restart or 10**4)
+        for tables_ in (None, per_image):
+            for live, capacity in _tile_cases(geom, cap):
+                _check_k4(cuda, z, geom, capacity, luts=tables_,
+                          live_entries=live, entries_per_interval=epi)
+
+
+@pytest.mark.cuda
+def test_entropy_kernel_repeats_exactly(cuda):
+    """Twenty launches over a 4K 4:4:4 random-noise image (6,075 tiles,
+    long codes, every tile waiting on its predecessors) give the plain
+    version's bytes and bit count every time."""
+    config = EncoderConfig(subsampling_ratio=(4, 4, 4))
+    rgb = np.random.default_rng(13).integers(0, 256, (2160, 3840, 3),
+                                             dtype=np.uint8)
+    geom = config.geometry(3840, 2160)
+    z, _ = pipeline.scan_entries(torch.from_numpy(rgb).to(cuda), geom,
+                                 config.dct_algorithm)
+    cap = entropy_ops.worst_case_capacity_bytes(geom)  # nothing dropped
+    want, want_bits = entropy_ops.encode_entries(z, geom, cap)
+    for _ in range(20):
+        got, bits = entropy_kernel.encode_entries(z, geom, cap)
+        torch.cuda.synchronize()
+        assert int(bits) == int(want_bits)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ from jpeg_encoder_tpu.ops import sample as jax_sample
 from jpeg_encoder_torch import constants
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.ops import color, dct, sample
+from test_torch_kernels import EXTREMES, extreme_planes
 
 RATIOS = [(4, 4, 4), (4, 2, 2), (4, 2, 0)]
 
@@ -373,3 +374,62 @@ def test_block_wrappers_reject_bad_operands():
             fn(blocks[:, :32], True)
         with pytest.raises(ValueError, match="contiguous"):
             fn(blocks.T.contiguous().T, True)
+
+
+# K1's design premise, held here where there is no card: its compact
+# operands are realdct_constants bit for bit, and its arithmetic order (the
+# first product px[k] * basis[u, x_k] once per u, then 8 chains over v) is
+# the plain chain's.
+@pytest.mark.parametrize("quality", [None, 1, 50, 90, 100])
+def test_realdct_kernel_operands_expand_to_steps(quality):
+    ops = constants.realdct_kernel_operands(quality)
+    want = constants.realdct_constants(quality)
+    zz = tables.ZIGZAG_ORDER  # zigzag position j -> natural u * 8 + v
+    u_of, v_of = zz // 8, zz % 8
+    x_of, y_of = np.arange(64) // 8, np.arange(64) % 8
+    a_steps = ops.basis[u_of[None, :], x_of[:, None]]
+    b_steps = ops.basis[v_of[None, :], y_of[:, None]]
+    for got, ref in ((a_steps, want.a_steps), (b_steps, want.b_steps),
+                     (ops.scale[zz], want.scale[0]),
+                     (ops.q_luma[zz], want.q_luma[0]),
+                     (ops.q_chroma[zz], want.q_chroma[0])):
+        assert got.dtype == np.float32
+        assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+    assert ops.zigzag.dtype == np.int32
+    assert np.array_equal(ops.zigzag[zz], np.arange(64))
+    for arr in ops:  # the wrapper hands the kernel their raw addresses
+        assert arr.flags.c_contiguous
+
+
+def _u_chains_model(planes, quality):
+    """float32 model of K1's order: per block and u, t1 = px[k] *
+    basis[u, x_k] once, then acc[v] = acc[v] + t1 * basis[v, y_k] for the
+    8 v, k = x_k * 8 + y_k in order; quantized with the compact rows and
+    placed at each coefficient's zigzag position. NumPy rounds every f32
+    operation on its own, as the kernel does."""
+    ops = constants.realdct_kernel_operands(quality)
+    out = []
+    for i, plane in enumerate(planes):
+        px = sample.blockify(_t(plane)).numpy().astype(np.float32) - np.float32(128)
+        acc = np.zeros((px.shape[0], 8, 8), np.float32)  # (block, u, v)
+        for k in range(64):
+            x, y = divmod(k, 8)
+            t1 = px[:, k, None] * ops.basis[:, x]  # (block, u)
+            acc = acc + t1[:, :, None] * ops.basis[:, y][None, None, :]
+        q = ops.q_luma if i == 0 else ops.q_chroma
+        coeffs = np.trunc((ops.scale * acc.reshape(-1, 64)) / q)
+        zigzag = np.empty_like(coeffs)
+        zigzag[:, ops.zigzag] = coeffs
+        out.append(zigzag.astype(np.int32).astype(np.int16))
+    return out
+
+
+@pytest.mark.parametrize("quality", [None, 90, 100])
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("content", ("random",) + EXTREMES)
+def test_realdct_u_chains_model_matches_plain(content, ratio, quality):
+    planes = extreme_planes(content, ratio, seed=3)
+    got = _u_chains_model(planes, quality)
+    want = dct.real_dct_quant_planes_zigzag(*(_t(p) for p in planes), quality)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())

@@ -8,8 +8,9 @@ RealDCT, K4 entropy, K3 binDCT, K5 bitstream assembly and the per-block
 tier K6a/b and K6c exactly, K4 also over restart intervals with
 live_entries and over a batch of images with per-image rows, intervals and
 tables, K6 also against K1 and K3 on the same blocks; K2 --fast-dct to max
-|diff| 1 at a mismatch rate below 1e-3, and 5e-4 against K1), drives the
-single-image paths
+|diff| 1 at a mismatch rate below 1e-3, and 5e-4 against K1, at quality
+None and 90, and at quality 100 with every mismatch a float32 rounding
+tie), drives the single-image paths
 (BMP file -> JFIF file with jpeg_encoder_torch.pipeline.encode_file on the
 card) with RealDCT at 1080p, 4K and odd geometries at every subsampling
 ratio, with binDCT (bug-parity and descaled) at 1080p and odd geometries,
@@ -25,11 +26,14 @@ and 12 x 4K at 4:2:0, 4:2:2, 4:4:4, binDCT, --fast-dct, restart 120 and 7,
 optimize alone and with restart 120, a forced single-image retry; every
 file against the single-image card path, a few against the CPU path) and
 the per-block tier (K6 on every plane of the 1080p corpus, against K1 and
-K3), each path between a reset and a read of the launch counts, and times
+K3) and a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
+2^31 bits, against the CPU path), each path between a reset and a read of
+the launch counts, and times
 the kernels (beside their bounds), the batch against a loop of single
 encodes, and the end-to-end encodes. It also prints each kernel's
 registers, spills and shared memory as ptxas reports them, the
-torch.matmul yardstick of K2 by events and device-busy time, and the
+torch.matmul yardstick of K2 by events and device-busy time beside K2's
+busy time and mismatch rates, and the
 device operations of one K4 call (failing unless they are the memset and
 one kernel). Any mismatch or error exits non-zero before the final line,
 which is
@@ -209,9 +213,39 @@ def exact_dct_phase(tag, fn, cuda, rng, variants) -> float:
     return float(worst)
 
 
+def fast_ties(dev_planes, quality, mismatch: torch.Tensor) -> bool:
+    """Whether every mismatching --fast-dct coefficient is a float32
+    rounding tie: its exact value sum_k px[k] K_zz[j][k] (float64 on the
+    card), over q, lies within 2^-15 of the sum of |terms| of a truncation
+    boundary (a nonzero integer), where two float32 orders may fall on
+    either side (tests/test_torch_kernels.py::assert_fast_tolerance)."""
+    from jpeg_encoder_torch.ops import dct as dct_ops
+    from jpeg_encoder_torch.ops import sample
+
+    kzz = dct_ops.fast_device_constant(dev_planes[0].device).double()
+    *_, q_luma, q_chroma = dct_ops.device_constants(quality,
+                                                    dev_planes[0].device)
+    px = [sample.blockify(p).double() - 128 for p in dev_planes]
+    q = torch.cat([(q_luma if i == 0 else q_chroma).double().expand(
+        p.shape[0], 64) for i, p in enumerate(px)])
+    px = torch.cat(px)
+    v = (px @ kzz.T) / q
+    nearest = torch.round(v)
+    boundary = torch.where(nearest.abs() >= 1, nearest, torch.sign(v))
+    tie = (v - boundary).abs() * q <= 2.0**-15 * (px.abs() @ kzz.abs().T)
+    return bool(tie[mismatch.to(tie.device).reshape(tie.shape)].all())
+
+
+FAST_RATES: list[str] = []  # K2's mismatch rates, for the summary
+
+
 def k2_phase(cuda, rng) -> float:
     """--fast-dct kernel vs its plain version (on CPU tensors) and vs the
-    exact K1 on the card; max |error| against the plain version."""
+    exact K1 on the card at quality None, 90 and 100; max |error| against
+    the plain version. At None and 90 the rates must stay below 1e-3 (vs
+    plain) and 5e-4 (vs K1); at 100 (q = 1), where the plain version itself
+    misses 5e-4 against K1 on random content, every mismatch must be a
+    rounding tie (fast_ties), and the rates are reported."""
     from jpeg_encoder_torch.kernels import dct as dct_kernel
 
     # The plain version's matmul must be full float32, never TF32.
@@ -222,27 +256,35 @@ def k2_phase(cuda, rng) -> float:
     for label, y_shape, c_shape in PLANE_SHAPES:
         planes = random_planes(rng, y_shape, c_shape)
         dev = [p.to(cuda) for p in planes]
-        for quality in (None, 90):
+        for quality in (None, 90, 100):
             got = torch.cat(dct_kernel.real_dct_fast_planes_zigzag(*dev, quality))
             torch.cuda.synchronize()
             got = got.cpu().to(torch.int32)
+            plain = torch.cat(dct_kernel.real_dct_fast_planes_zigzag(
+                *planes, quality)).to(torch.int32)
+            exact = torch.cat(dct_kernel.real_dct_quant_planes_zigzag(
+                *dev, quality)).cpu().to(torch.int32)
             rates = []
-            for name, want, limit in (
-                ("plain", dct_kernel.real_dct_fast_planes_zigzag(*planes, quality),
-                 1e-3),
-                ("K1", dct_kernel.real_dct_quant_planes_zigzag(*dev, quality),
-                 5e-4),
-            ):
-                d = (got - torch.cat(want).cpu().to(torch.int32)).abs()
+            for name, a, b, limit in (("K2 vs plain", got, plain, 1e-3),
+                                      ("K2 vs K1", got, exact, 5e-4),
+                                      ("plain vs K1", plain, exact, None)):
+                d = (a - b).abs()
                 err, rate = int(d.max()), float((d > 0).double().mean())
-                if name == "plain":
+                if name == "K2 vs plain":
                     worst = max(worst, err)
-                check(err <= 1 and rate < limit,
-                      f"K2 {label} q={quality} vs {name}: max |err| {err}, "
-                      f"mismatch rate {rate}")
-                rates.append(f"vs {name} max |err| {err}, mismatch rate "
-                             f"{rate:.3e} ({int((d > 0).sum())} of {d.numel()})")
-            print(f"K2 {label} q={quality}: " + "; ".join(rates), flush=True)
+                if limit is not None:
+                    held = rate < limit if quality != 100 else fast_ties(
+                        dev, quality, d > 0)
+                    check(err <= 1 and held,
+                          f"K2 {label} q={quality} {name}: max |err| {err}, "
+                          f"mismatch rate {rate}")
+                rates.append(f"{name} max |err| {err}, rate {rate:.3e} "
+                             f"({int((d > 0).sum())} of {d.numel()})")
+            line = f"q={quality}: " + "; ".join(rates)
+            FAST_RATES.append(f"{label} {line}")
+            print(f"K2 {label} {line}"
+                  + ("; every mismatch a rounding tie" if quality == 100
+                     else ""), flush=True)
     return float(worst)
 
 
@@ -655,6 +697,43 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
     return counts
 
 
+def gradient(height: int, width: int) -> np.ndarray:
+    """A smooth RGB gradient: red across, green down, blue diagonal."""
+    y, x = np.mgrid[0:height, 0:width]
+    return np.stack([x * 255 // (width - 1), y * 255 // (height - 1),
+                     (x + y) * 255 // (width + height - 2)],
+                    axis=-1).astype(np.uint8)
+
+
+def large_image_path(cuda) -> dict[str, int]:
+    """A 7680x4320 4:4:4 gradient through pipeline.encode_array on the card
+    (1,555,200 scan entries, a worst case of 2.7e9 bits, past 2^31): its
+    file must equal the CPU path's, and K1 and K4 must have run. Returns
+    the path's launch counts."""
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+
+    config = EncoderConfig(subsampling_ratio=(4, 4, 4))
+    rgb = gradient(4320, 7680)
+    geom = config.geometry(7680, 4320)
+    check(entropy_kernel.worst_case_bits(geom) >= 2**31,
+          "the large image's worst case is below 2^31 bits")
+    results = []
+    counts = counted("large image", lambda: results.append(
+        pipeline.encode_array(rgb, config, device=cuda)),
+        ("realdct", "entropy"))
+    t0 = time.perf_counter()
+    want = pipeline.encode_array(rgb, config, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(results[0].file_bytes == want.file_bytes,
+          "large image: card file != CPU file")
+    print(f"large image 7680x4320 4:4:4: {len(want.file_bytes)} B, "
+          f"{want.bit_length} bits, card == CPU path (CPU path "
+          f"{cpu_s:.1f} s)", flush=True)
+    return counts
+
+
 def blocks_as_plane(blocks: torch.Tensor, blocks_x: int) -> torch.Tensor:
     """The (H, W) plane whose row-major blocks are `blocks`."""
     n = blocks.shape[0]
@@ -941,10 +1020,12 @@ def interval_pairs(z, geom):
 
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes
 # a second, float32 FLOP a second outside the tensor cores (a fused
-# multiply-add counts 2). Without FMAs the FP32 pipes issue half that many
-# operations; INT32 has half the FP32 lanes, so a quarter of the FLOP rate.
+# multiply-add counts 2), dense bf16 FLOP a second on the tensor cores.
+# Without FMAs the FP32 pipes issue half that many operations; INT32 has
+# half the FP32 lanes, so a quarter of the FLOP rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 FP32_ISSUE_OPS = FP32_FLOPS / 2
 INT32_OPS = FP32_FLOPS / 4
 # Operations per 8x8 block: RealDCT, the least work its function needs, 8
@@ -952,9 +1033,14 @@ INT32_OPS = FP32_FLOPS / 4
 # coefficients of that u: the same operands give the same rounded product),
 # 64 second products and 64 adds a step, over 64 steps, then a scale
 # multiply and a divide a coefficient; binDCT, 16 8-point lifts of 43
-# integer operations, 64 level shifts, 64 divides.
+# integer operations, 64 level shifts, and 64 divides by invariant integers
+# of MAGIC_DIVIDE_OPS each ((x + mulhi(m, x)) >> s) - (x >> 31)); --fast-dct,
+# the three bf16 split products of 64 x 64 multiply-adds (FAST_BLOCK_FLOPS,
+# at BF16_TENSOR_FLOPS).
 REALDCT_BLOCK_OPS = 8 * 64 + 64 * 64 * 2 + 2 * 64
-BINDCT_BLOCK_OPS = 16 * 43 + 64 + 64
+MAGIC_DIVIDE_OPS = 5
+BINDCT_BLOCK_OPS = 16 * 43 + 64 + 64 * MAGIC_DIVIDE_OPS
+FAST_BLOCK_FLOPS = 3 * 2 * 64 * 64
 
 
 def bound(num_bytes: int, ops: int = 0, rate: float = 1.0) -> tuple:
@@ -969,9 +1055,10 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
     """Kernel vs plain times (CUDA events around each call, and the
     device-busy time inside it), the device time of each encode stage, and
     the end-to-end time per image, at 1080p and 4K (4:2:0, corpus
-    content). Returns the 1080p kernel and plain event times, each
-    kernel's bound on the same inputs, and the time of one PyTorch call
-    computing the same function where there is one (K2's matmul)."""
+    content). Returns the 1080p kernel and plain event times, the kernels'
+    device-busy times, each kernel's bound on the same inputs, and the time
+    of one PyTorch call computing the same function where there is one
+    (K2's matmul), by events and device-busy."""
     import dataclasses
 
     from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
@@ -985,7 +1072,7 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
     config = EncoderConfig()
     bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
     fast = EncoderConfig(fast_dct=True)
-    times = {}
+    times, busy = {}, {}
     for label, rgb in (
         ("1920x1080", next(iter(images_1080.values()))),
         ("3840x2160", next(iter(images_4k.values()))),
@@ -1051,9 +1138,11 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
              if label == "1920x1080" else []):
             p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
             times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
+            kernel_busy = busy_ms(kernel)
+            busy.setdefault(name, kernel_busy)  # 1080p first
             print(f"time {name} {label} 4:2:0: kernel {(k1 + k2) / 2:.4f} ms, "
                   f"plain {(p1 + p2) / 2:.4f} ms; device-busy kernel "
-                  f"{fmt(busy_ms(kernel))} ms, plain {fmt(busy_ms(plain))} ms "
+                  f"{fmt(kernel_busy)} ms, plain {fmt(busy_ms(plain))} ms "
                   f"({card})", flush=True)
 
         cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
@@ -1121,7 +1210,7 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
                                                  None))
     print(f"time host restart_result 1920x1080 4:2:0 restart 1 "
           f"({len(bit_list)} segments): {ms:.3f} ms", flush=True)
-    return times, bounds, library, library_busy
+    return times, busy, bounds, library, library_busy
 
 
 def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
@@ -1138,7 +1227,8 @@ def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
     cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
     bounds = {
         "realdct": bound(plane_bytes, n * REALDCT_BLOCK_OPS, FP32_ISSUE_OPS),
-        "fastdct": bound(plane_bytes, n * 2 * 64 * 64, FP32_FLOPS),
+        "fastdct": bound(plane_bytes, n * FAST_BLOCK_FLOPS,
+                         BF16_TENSOR_FLOPS),
         "bindct": bound(plane_bytes, n * BINDCT_BLOCK_OPS, INT32_OPS),
         # z in, the two (2, 256) tables, one row of cap bytes and its count.
         "entropy": bound(z.numel() * 2 + 4096 + cap + 4),
@@ -1244,9 +1334,16 @@ def main() -> int:
     path_counts.append(block_tier_path(cuda, images_1080))
     phase_s["per-block tier"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    times, bounds, library, library_busy = timing_phase(
+    path_counts.append(large_image_path(cuda))
+    phase_s["large image"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    times, busy, bounds, library, library_busy = timing_phase(
         cuda, images_1080, images_4k, card)
     phase_s["timing"] = time.perf_counter() - t0
+    print(f"K2 fastdct 1920x1080 4:2:0 device-busy {fmt(busy['fastdct'])} ms "
+          f"vs torch.matmul (its product alone) {fmt(library_busy['fastdct'])}"
+          f" ms; mismatch rates: " + " | ".join(FAST_RATES) + f" ({card})",
+          flush=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                         phase_s.items()) + f" ({card})",
           flush=True)
@@ -1261,7 +1358,7 @@ def main() -> int:
         "max_abs_err": errors[k.name], "ms": times[k.name][0],
         "plain_ms": times[k.name][1], "bound_ms": bounds[k.name][0],
         "bound_by": bounds[k.name][1], "library_ms": library[k.name],
-        "library_busy_ms": library_busy[k.name],
+        "library_busy_ms": library_busy[k.name], "busy_ms": busy[k.name],
     } for k in all_kernels()]
     print(card)
     print(json.dumps({"kernels": kernels}))

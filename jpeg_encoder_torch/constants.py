@@ -122,6 +122,37 @@ def fast_kron_zigzag() -> np.ndarray:
     return out
 
 
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """The bfloat16 nearest to each finite float32 (ties to even), as its
+    uint16 bit pattern: NumPy has no bfloat16 type."""
+    u = np.ascontiguousarray(x, dtype=_F32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint16)
+
+
+def bf16_to_f32(bits: np.ndarray) -> np.ndarray:
+    """uint16 bfloat16 bit patterns -> their (exact) float32 values."""
+    return (bits.astype(np.uint32) << 16).view(_F32)
+
+
+@functools.cache
+def fast_kron_split() -> np.ndarray:
+    """(3, 64, 64) uint16: the bfloat16 bit patterns of the 3-term split of
+    fast_kron_zigzag() M that the --fast-dct TPU kernel forms
+    (dct_pallas._realdct_t_planes_fast_chain): m1 = bf16(M), m2 = bf16(M -
+    m1), m3 = bf16(M - m1 - m2), the differences taken in float32; rows
+    [m1, m2, m3]. M = m1 + m2 + m3 to ~2^-24 relative, and every product
+    of a level-shifted pixel (exact in bfloat16) with a term is exact in
+    float32, which is why K2 can run the product on bf16 tensor cores."""
+    m = fast_kron_zigzag()
+    m1 = bf16_bits(m)
+    r1 = m - bf16_to_f32(m1)
+    m2 = bf16_bits(r1)
+    m3 = bf16_bits(r1 - bf16_to_f32(m2))
+    out = np.stack([m1, m2, m3])
+    out.setflags(write=False)
+    return out
+
+
 def bindct_lift8(x: list, shr) -> list:
     """One 8-point all-lifting binDCT-C pass (dct_quant.rs:84-129 in the
     reference), outputs in natural frequency order. shr(v, k) is the
@@ -204,6 +235,38 @@ def bindct_constants(quality: int | None = None) -> BinDctConstants:
     for arr in consts:
         arr.setflags(write=False)
     return consts
+
+
+def division_magic(d: int) -> tuple[int, int]:
+    """(m, s) such that C's truncating n / d, for every int32 n (|n| well
+    below 2^31) and divisor 1 <= d < 2^31, is
+
+        ((n + mulhi(m, n)) >> s) - (n >> 31)
+
+    with mulhi the high 32 bits of the signed 64-bit product and >> the
+    arithmetic shift (Granlund and Montgomery, "Division by Invariant
+    Integers using Multiplication", PLDI 1994, signed division by a
+    constant; Hacker's Delight, section 10). m is an int32."""
+    if not 1 <= d < 2**31:
+        raise ValueError(f"divisor {d} out of range")
+    ell = max((d - 1).bit_length(), 1)  # ceil(log2 d), at least 1
+    return 1 + (1 << (31 + ell)) // d - (1 << 32), ell - 1
+
+
+@functools.cache
+def bindct_divisors(quality: int | None = None) -> np.ndarray:
+    """(2, 64, 2) int32: the division_magic (m, s) of every zigzag position
+    of the luma (row 0) and chroma (row 1) rows of
+    bindct_constants(quality), so the binDCT kernel's bug-parity x / q is a
+    multiply-high and shifts."""
+    consts = bindct_constants(quality)
+    out = np.array(
+        [[division_magic(int(q)) for q in row[0]]
+         for row in (consts.q_luma, consts.q_chroma)],
+        dtype=np.int32,
+    )
+    out.setflags(write=False)
+    return out
 
 
 @functools.cache

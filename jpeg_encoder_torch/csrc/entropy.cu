@@ -59,13 +59,15 @@
 // coefficients an entry in, a few bits of stream out), but its
 // symbolization is integer, shuffle and table work, a warp an entry, and a
 // tile's prefix waits on its predecessors. So each entry is symbolized
-// once; a tile of 64 entries on 4 warps keeps the CTA small enough (78
+// once; a tile of 64 entries on 4 warps keeps the CTA small enough (80
 // registers, 6 CTAs an SM) that every 1080p tile is resident at once; and
 // the look-back reads 32 predecessors a step.
 //
-// The offsets are int32 and relative to the row, so the bound is per row:
-// the caller keeps one image's worst case below 2^31 bits
-// (kernels/entropy.py refuses more).
+// Bit offsets are relative to the row and 64-bit: a tile's base offset in
+// its row, the published tile sums and the row lengths are 64-bit, and only
+// offsets inside a tile (at most 64 * 1755 bits) are int. A row may pass
+// 2^31 bits. The one bound is num_words, a C int: the caller keeps a row's
+// capacity below 2^31 words (kernels/entropy.py refuses more).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -82,9 +84,11 @@ constexpr int kLutSize = 1024;  // dc luma, dc chroma, ac luma, ac chroma
 // A tile's packed words: 64 slots of at most 32 bits an entry, plus at
 // most two partial words a segment (at most kTile segments).
 constexpr int kBufWords = kTile * 64 + 2 * kTile;
-// Tile status words: flag in the high half, bit count in the low half.
-constexpr unsigned long long kAggregate = 1ull << 32;  // the tile's own sum
-constexpr unsigned long long kPrefix = 2ull << 32;     // sum since row start
+// Tile status words: a flag in bits 62-63, a 62-bit bit count below it.
+constexpr int kFlagShift = 62;
+constexpr unsigned long long kAggregate = 1ull << kFlagShift;  // tile's sum
+constexpr unsigned long long kPrefix = 2ull << kFlagShift;  // since row start
+constexpr unsigned long long kCountMask = kAggregate - 1;
 
 // Code of one slot: i is the zigzag position, v its value (slot 0: the DC
 // difference), run_base the position of the previous nonzero (0 if none).
@@ -179,25 +183,24 @@ __device__ __forceinline__ void store_status(unsigned long long* status,
 // statuses of tiles t - 1, t - 2, ... (32 a step, nearest first), which
 // all belong to this tile's image: the walk ends at the nearest prefix,
 // and the image's first tile publishes one.
-__device__ __forceinline__ int look_back(const unsigned long long* status,
-                                         int t, int image_first_tile,
-                                         int lane) {
-  int prefix = 0;
+__device__ __forceinline__ long long look_back(
+    const unsigned long long* status, int t, int image_first_tile, int lane) {
+  unsigned long long prefix = 0;
   for (int pred = t - 1;; pred -= 32) {
     const int idx = pred - lane;
     unsigned long long s = kPrefix;
     if (idx >= image_first_tile) {
       do {
         s = load_status(status, idx);
-      } while ((s >> 32) == 0);
+      } while ((s >> kFlagShift) == 0);
     }
-    const unsigned is_prefix = __ballot_sync(kFull, (s >> 32) == 2);
+    const unsigned is_prefix = __ballot_sync(kFull, (s >> kFlagShift) == 2);
     const int stop = is_prefix ? __ffs(is_prefix) - 1 : 31;
-    int v = lane <= stop ? static_cast<int>(static_cast<uint32_t>(s)) : 0;
+    unsigned long long v = lane <= stop ? s & kCountMask : 0;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
     prefix += v;
-    if (is_prefix) return prefix;
+    if (is_prefix) return static_cast<long long>(prefix);
   }
 }
 
@@ -206,7 +209,8 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
                int live, int hv, const int* __restrict__ init_dc,
                const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
                int lut_stride, int tiles_per_image,
-               int* __restrict__ interval_bits, uint32_t* __restrict__ out,
+               long long* __restrict__ interval_bits,
+               uint32_t* __restrict__ out,
                int num_words, unsigned long long* status,
                unsigned* __restrict__ counter) {
   __shared__ int lut[kLutSize];
@@ -217,7 +221,7 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
   __shared__ int len_s[kTile];     // entry bit lengths
   __shared__ int pos_s[kTile];     // entry's first bit in buf
   __shared__ int seg_base[kTile + 1];  // segment's first word in buf, + end
-  __shared__ int seg_word[kTile];      // segment's first word in its row
+  __shared__ long long seg_word[kTile];  // segment's first word in its row
   __shared__ int seg_row[kTile];
   __shared__ int meta[3];              // tile index, segments, words in buf
   __shared__ uint32_t buf[kBufWords];
@@ -337,24 +341,25 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
     const bool tile_has_start = __shfl_sync(kFull, f, 31);
     const int tile_sum = __shfl_sync(kFull, v, 31);  // since the last start
     const bool leading = !(row_s[0] & 1);  // entry 0 continues a row
-    int lead = 0;  // row offset of entry 0 when it continues a row
+    long long lead = 0;  // row offset of entry 0 when it continues a row
+    const unsigned long long sum = static_cast<unsigned>(tile_sum);
     if (!leading || tile_has_start) {
-      if (lane == 0) store_status(status, t, kPrefix | tile_sum);
+      if (lane == 0) store_status(status, t, kPrefix | sum);
     } else if (lane == 0) {
-      store_status(status, t, kAggregate | tile_sum);
+      store_status(status, t, kAggregate | sum);
     }
     if (leading) {
       lead = look_back(status, t, image * tiles_per_image, lane);
       if (!tile_has_start && lane == 0) {
-        store_status(status, t, kPrefix | (lead + tile_sum));
+        store_status(status, t, kPrefix | (lead + sum));
       }
     }
     // Row offsets: entries before the tile's first row start continue the
     // leading row from `lead`; the others count from their row's start.
-    const int off0 = f0 ? 0 : (ef ? ev : lead + ev);
+    const long long off0 = f0 ? 0 : (ef ? ev : lead + ev);
     const bool g1 = ef || f0;  // a row start at or before entry j0
     const int ex1 = f0 ? L0 : ev + L0;
-    const int off1 = f1 ? 0 : (g1 ? ex1 : lead + ex1);
+    const long long off1 = f1 ? 0 : (g1 ? ex1 : lead + ex1);
     // Rows ending here report their length.
     if (r0 & 2) interval_bits[r0 >> 2] = off0 + L0;
     if (r1 & 2) interval_bits[r1 >> 2] = off1 + L1;
@@ -374,16 +379,21 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
     // `lead` for the leading row) to the end entry's offset plus length.
     const bool e0 = j0 < n && (j1 >= n || f1);
     const bool e1 = j1 < n && (j1 + 1 >= n || (r1 & 2));
-    int words0 = 0, words1 = 0, start0 = 0, start1 = 0;
+    int words0 = 0, words1 = 0;
+    long long start0 = 0, start1 = 0;
     if (e0) {
       start0 = (seg0 == 0 && leading) ? lead : 0;
-      const int end = off0 + L0;
-      words0 = end > start0 ? ((end + 31) >> 5) - (start0 >> 5) : 0;
+      const long long end = off0 + L0;
+      words0 = end > start0
+                   ? static_cast<int>(((end + 31) >> 5) - (start0 >> 5))
+                   : 0;
     }
     if (e1) {
       start1 = (seg1 == 0 && leading) ? lead : 0;
-      const int end = off1 + L1;
-      words1 = end > start1 ? ((end + 31) >> 5) - (start1 >> 5) : 0;
+      const long long end = off1 + L1;
+      words1 = end > start1
+                   ? static_cast<int>(((end + 31) >> 5) - (start1 >> 5))
+                   : 0;
     }
     int w_incl = words0 + words1;
 #pragma unroll
@@ -410,8 +420,15 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
       meta[2] = total;
     }
     __syncwarp();
-    if (j0 < n) pos_s[j0] = seg_base[seg0] * 32 + (off0 - seg_word[seg0] * 32);
-    if (j1 < n) pos_s[j1] = seg_base[seg1] * 32 + (off1 - seg_word[seg1] * 32);
+    // An entry's first bit in buf: small, though off and seg_word are not.
+    if (j0 < n) {
+      pos_s[j0] = seg_base[seg0] * 32 +
+                  static_cast<int>(off0 - seg_word[seg0] * 32);
+    }
+    if (j1 < n) {
+      pos_s[j1] = seg_base[seg1] * 32 +
+                  static_cast<int>(off1 - seg_word[seg1] * 32);
+    }
   } else {
     // Meanwhile the other warps clear the packing buffer.
     for (int i = threadIdx.x - 32; i < kBufWords; i += kThreads - 32) {
@@ -445,7 +462,7 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
         hi = mid - 1;
       }
     }
-    const int gw = seg_word[lo] + (w - seg_base[lo]);
+    const long long gw = seg_word[lo] + (w - seg_base[lo]);
     if (gw >= num_words) continue;  // the row's capacity: dropped
     const uint32_t val = __byte_perm(buf[w], 0, 0x0123);  // big-endian
     uint32_t* dst = out + static_cast<size_t>(seg_row[lo]) * num_words + gw;
@@ -482,13 +499,13 @@ long long buffer_ints(int images, int per_image, int epi, int num_words) {
 // big-endian words), then, from the next even index, one 8-byte status word
 // per tile (ceil(per_image / 64) tiles an image) and the 4-byte tile
 // counter (buffer_ints), all zeroed here by one memset.
-// interval_bits: one int32 per row. Returns the first cudaError_t met (0 on
+// interval_bits: one int64 per row. Returns the first cudaError_t met (0 on
 // success).
 extern "C" int jt_entropy_encode(const int16_t* z, int num_entries,
                                  int per_image, int epi, int live, int hv,
                                  const int* init_dc, const int* dc_lut,
                                  const int* ac_lut, int lut_stride,
-                                 int* interval_bits, int32_t* buffer,
+                                 long long* interval_bits, int32_t* buffer,
                                  int num_words, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (num_entries <= 0 || per_image <= 0 || epi <= 0 || num_words <= 0 ||

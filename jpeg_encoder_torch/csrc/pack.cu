@@ -5,7 +5,7 @@
 // jpeg_encoder_tpu/kernels/pack_pallas.py::assemble_bitstream_pallas (body
 // _assemble_kernel), vmapped over restart intervals as the JAX package runs
 // it. Same function: (rows, E, EW) u32 per-entry words, each entry's codes
-// packed MSB-first from its bit 0, plus (rows, E) int32 bit offsets within
+// packed MSB-first from its bit 0, plus (rows, E) int64 bit offsets within
 // the row -> (rows, num_words) u32 words, word k of entry e landing at bit
 // offsets[e] + 32 k of its row. Words at or past num_words are dropped. The
 // TPU kernel clamps such entries onto the buffer's tail instead; the two
@@ -36,7 +36,7 @@ constexpr int kThreads = 32 * kWarps;
 
 __global__ void __launch_bounds__(kThreads)
 assemble_kernel(const uint32_t* __restrict__ entry_words,
-                const int* __restrict__ offsets, long long num_items,
+                const long long* __restrict__ offsets, long long num_items,
                 int entries, int ew, uint32_t* __restrict__ out,
                 int num_words) {
   const int lane = threadIdx.x & 31;
@@ -45,8 +45,9 @@ assemble_kernel(const uint32_t* __restrict__ entry_words,
        item < num_items; item += static_cast<long long>(gridDim.x) * kWarps) {
     const uint32_t* w = entry_words + item * ew;
     uint32_t* row = out + (item / entries) * num_words;
-    const int off = offsets[item];
-    const int q = off >> 5, s = off & 31;
+    const long long off = offsets[item];
+    const long long q = off >> 5;  // a row may pass 2^31 bits
+    const int s = static_cast<int>(off & 31);
     // Output words q + k, k = 0..ew (ew + 1 of them, the last a spill),
     // in rounds of 32; `last` is the entry's last non-zero output word.
     uint32_t vals[2];
@@ -63,7 +64,7 @@ assemble_kernel(const uint32_t* __restrict__ entry_words,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int k = 32 * r + lane;
-      const int gw = q + k;
+      const long long gw = q + k;
       if (k > ew || vals[r] == 0u || gw >= num_words) continue;
       if (k == 0 || k == last) {
         atomicOr(&row[gw], vals[r]);  // may hold a neighbour's bits
@@ -88,13 +89,13 @@ int grid_for(long long warps_of_work) {
 }  // namespace
 
 // entry_words: (rows, entries, ew) u32, ew <= 63. offsets: (rows, entries)
-// int32 bit offsets, >= 0, within each row. out: (rows, num_words) u32
+// int64 bit offsets, >= 0, within each row. out: (rows, num_words) u32
 // value words (not byte-swapped), zero-filled here first. Returns the first
 // cudaError_t met (0 on success).
 extern "C" int jt_assemble_bitstream(const uint32_t* entry_words,
-                                     const int* offsets, int rows, int entries,
-                                     int ew, uint32_t* out, int num_words,
-                                     void* stream) {
+                                     const long long* offsets, int rows,
+                                     int entries, int ew, uint32_t* out,
+                                     int num_words, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long num_items = static_cast<long long>(rows) * entries;
   cudaError_t err = cudaMemsetAsync(

@@ -45,7 +45,7 @@ FASTDCT = Kernel(
 )
 BINDCT = Kernel(
     "bindct", "jt_bindct_planes",
-    (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P),
+    (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:568",
 )
 # K6a (:80); K6b (dct_pallas.py:156) computes the same function.
@@ -54,7 +54,7 @@ REALDCT_BLOCKS = Kernel(
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:80", lib="realdct",
 )
 BINDCT_BLOCKS = Kernel(
-    "bindct_blocks", "jt_bindct_blocks", (_P, _I, _P, _P, _P),
+    "bindct_blocks", "jt_bindct_blocks", (_P, _I, _P, _P, _P, _P),
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:714", lib="bindct",
 )
 
@@ -132,19 +132,20 @@ def real_dct_fast_planes_zigzag(
     cr_plane: torch.Tensor,
     quality: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2: --fast-dct RealDCT, trunc((block @ K_zz^T) / q) in f32 with the
-    kernel's own summation order: within max |diff| 1 of
-    ops/dct.real_dct_fast_planes_zigzag, not bit-identical."""
+    """K2: --fast-dct RealDCT, trunc((block @ K_zz^T) / q), on the card as
+    the TPU kernel's 3-term bf16 split of K_zz on the tensor cores with f32
+    accumulation: within max |diff| 1 of ops/dct.real_dct_fast_planes_zigzag,
+    not bit-identical."""
     _check_planes(y_plane, cb_plane, cr_plane)
     if y_plane.device.type == "cpu":
         return dct_ops.real_dct_fast_planes_zigzag(
             y_plane, cb_plane, cr_plane, quality
         )
-    kzz = dct_ops.fast_device_constant(y_plane.device)
+    split = dct_ops.fast_split_device_constant(y_plane.device)
     *_, q_luma, q_chroma = dct_ops.device_constants(quality, y_plane.device)
     return _launch(
         FASTDCT, y_plane, cb_plane, cr_plane,
-        kzz.data_ptr(), q_luma.data_ptr(), q_chroma.data_ptr(),
+        split.data_ptr(), q_luma.data_ptr(), q_chroma.data_ptr(),
     )
 
 
@@ -165,10 +166,11 @@ def bin_dct_quant_planes_zigzag(
     q_luma, q_chroma, gains = dct_ops.bindct_device_constants(
         quality, y_plane.device
     )
+    divisors = dct_ops.bindct_divisors_device_constant(quality, y_plane.device)
     return _launch(
         BINDCT, y_plane, cb_plane, cr_plane,
         q_luma.data_ptr(), q_chroma.data_ptr(), gains.data_ptr(),
-        int(descale),
+        divisors.data_ptr(), int(descale),
     )
 
 
@@ -224,6 +226,9 @@ def bin_dct_quant_zigzag(
     q_luma, q_chroma, _ = dct_ops.bindct_device_constants(
         quality, blocks.device
     )
+    divisors = dct_ops.bindct_divisors_device_constant(quality, blocks.device)
+    table = 0 if is_luma else 1
     return _launch_blocks(
         BINDCT_BLOCKS, blocks, (q_luma if is_luma else q_chroma).data_ptr(),
+        divisors[table].data_ptr(),
     )

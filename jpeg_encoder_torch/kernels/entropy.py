@@ -29,9 +29,9 @@ ENTROPY = Kernel(
     replaces="jpeg_encoder_tpu/kernels/entropy_pallas.py:570",
 )
 _TILE = 64  # entries a tile (kTile in entropy.cu)
-# The kernel's bit offsets are int32 and relative to their row (an image or
-# a restart interval), so one image's worst case must stay below this.
-OFFSET_LIMIT_BITS = 2**31
+# The kernel's bit offsets and counts are 64-bit; a row's length in words is
+# a C int, the one bound on its operands.
+MAX_NUM_WORDS = 2**31 - 1
 
 
 @functools.lru_cache(maxsize=8)
@@ -46,13 +46,18 @@ def worst_case_bits(geom: FrameGeometry) -> int:
     return geom.num_scan_entries * entropy_ops.WORST_CASE_BITS_PER_ENTRY
 
 
-def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> int:
-    """Raise on what the kernel does not take; -> the number of images."""
-    if worst_case_bits(geom) >= OFFSET_LIMIT_BITS:
+def _check_kernel_operands(capacity_bytes: int) -> None:
+    """Raise on what only the kernel does not take: rows of more words
+    than a C int counts."""
+    if capacity_bytes // 4 > MAX_NUM_WORDS:
         raise ValueError(
-            f"{geom.width}x{geom.height}: the worst-case bit count does not "
-            "fit the kernel's int32 offsets"
+            f"capacity_bytes {capacity_bytes}: the kernel codes rows of at "
+            f"most {MAX_NUM_WORDS} 4-byte words"
         )
+
+
+def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> int:
+    """Raise on what neither path takes; -> the number of images."""
     if z.dtype != torch.int16 or z.dim() != 2 or z.shape[1] != 64:
         raise ValueError(
             f"z must be (E, 64) int16, got {z.dtype} {tuple(z.shape)}"
@@ -117,7 +122,7 @@ def encode_entries(
     entries_per_interval: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(E, 64) int16 scan entries -> (bytes (capacity_bytes,) uint8,
-    total_bits int32 scalar), as ops/entropy.encode_entries.
+    total_bits int64 scalar), as ops/entropy.encode_entries.
 
     init_dc: (3,) initial DC predictors (Y, Cb, Cr), zeros by default; the
     unbroken scan only. luts: (dc, ac) (2, 256) packed `length << 20 |
@@ -143,6 +148,7 @@ def encode_entries(
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    _check_kernel_operands(capacity_bytes)
     if init_dc is None:
         init_dc = _zero_dc(device)
     if luts is None:
@@ -159,7 +165,7 @@ def encode_entries(
     epi = epi or per_image
     n_rows = images * -(-per_image // epi)
     num_words = capacity_bytes // 4
-    bits = torch.empty(n_rows, dtype=torch.int32, device=device)
+    bits = torch.empty(n_rows, dtype=torch.int64, device=device)
     # One buffer, zeroed by the kernel's one memset: the output rows, then
     # (8-byte aligned) a status word per tile and the tile counter.
     out_ints = n_rows * num_words

@@ -28,7 +28,7 @@ def assemble_bitstream(
     entry_words: torch.Tensor, offsets: torch.Tensor, capacity_bytes: int
 ) -> torch.Tensor:
     """(B, E, EW) int32 per-entry words (u32 bits, pack_level1's) + (B, E)
-    int32 bit offsets within each row -> (B, capacity_bytes // 4) int32
+    int64 bit offsets within each row -> (B, capacity_bytes // 4) int32
     words, as ops/entropy.assemble_bitstream.
 
     Words at or past a row's capacity are dropped. The TPU kernel clamps
@@ -46,11 +46,11 @@ def assemble_bitstream(
             "entry_words must be (B, E, EW) int32 with EW < 64, got "
             f"{entry_words.dtype} {tuple(entry_words.shape)}"
         )
-    if (offsets.dtype != torch.int32
+    if (offsets.dtype != torch.int64
             or offsets.shape != entry_words.shape[:2]
             or offsets.device != entry_words.device):
         raise ValueError(
-            "offsets must be (B, E) int32 on entry_words' device, got "
+            "offsets must be (B, E) int64 on entry_words' device, got "
             f"{offsets.dtype} {tuple(offsets.shape)} on {offsets.device}"
         )
     device = entry_words.device
@@ -60,6 +60,11 @@ def assemble_bitstream(
         )
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    if capacity_bytes // 4 >= 2**31:
+        raise ValueError(
+            f"capacity_bytes {capacity_bytes}: the kernel assembles rows of "
+            "fewer than 2^31 4-byte words"
+        )
     rows, entries, ew = entry_words.shape
     entry_words = entry_words.contiguous()
     offsets = offsets.contiguous()

@@ -64,6 +64,14 @@ def fast_device_constant(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(constants.fast_kron_zigzag().copy()).to(device)
 
 
+@functools.lru_cache(maxsize=8)
+def fast_split_device_constant(device: torch.device) -> torch.Tensor:
+    """K2's operand: the (3, 64, 64) bfloat16 split [m1, m2, m3] of K_zz
+    (constants.fast_kron_split) on device."""
+    bits = constants.fast_kron_split().view(np.int16).copy()
+    return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+
+
 @functools.lru_cache(maxsize=32)
 def bindct_device_constants(
     quality: int | None, device: torch.device
@@ -73,6 +81,15 @@ def bindct_device_constants(
         torch.from_numpy(arr.copy()).to(device).reshape(64)
         for arr in constants.bindct_constants(quality)
     )
+
+
+@functools.lru_cache(maxsize=32)
+def bindct_divisors_device_constant(
+    quality: int | None, device: torch.device
+) -> torch.Tensor:
+    """The binDCT kernels' (2, 64, 2) int32 division magic numbers
+    (constants.bindct_divisors) on device."""
+    return torch.from_numpy(constants.bindct_divisors(quality).copy()).to(device)
 
 
 def _planes_to_blocks(y_plane, cb_plane, cr_plane):

@@ -61,6 +61,7 @@ WORST_CASE_BITS_PER_ENTRY = 65 * 27
 ENTRY_WORDS = 56
 
 _TRASH = 1024  # symbol id of a slot that emits nothing
+_CHUNK_ENTRIES = 1 << 16  # entries of one chunk of the element-wise work
 
 
 def worst_case_capacity_bytes(geom: FrameGeometry) -> int:
@@ -268,14 +269,43 @@ def slot_symbols(
     dead entry) has id 1024. ampl/abl are the amplitude bits appended
     after the code and their count (0 for ZRL and EOB).
     """
-    device = z.device
-    z = z.to(torch.int64)
-    num_entries = z.shape[0]
-    chroma = (
-        torch.arange(num_entries, device=device) % (hv + 2) >= hv
-    ).to(torch.int64)[:, None]
+    parts = list(_slot_symbol_chunks(z, hv, init_dc, live_entries,
+                                     entries_per_interval, entries_per_image))
+    return tuple(torch.cat(p) for p in zip(*parts))
 
+
+def _chunks(num_entries: int) -> range:
+    """First entries of the plain coder's chunks: its element-wise work
+    runs _CHUNK_ENTRIES entries at a time, which bounds the (chunk, 64)
+    int64 temporaries on a large image."""
+    return range(0, num_entries, _CHUNK_ENTRIES)
+
+
+def _slot_symbol_chunks(z, hv, init_dc, live_entries, entries_per_interval,
+                        entries_per_image):
+    """slot_symbols' (ids, ampl, abl), chunk by chunk (_chunks). The DC
+    differences, the one dependence between entries, are taken first over
+    the whole scan."""
+    device = z.device
+    num_entries = z.shape[0]
+    diff = dc_differences(z[:, 0].to(torch.int64), hv, init_dc,
+                          entries_per_interval, entries_per_image)
+    e = torch.arange(num_entries, device=device)
+    chroma = (e % (hv + 2) >= hv).to(torch.int64)[:, None]
+    live = None
+    if live_entries is not None:
+        live = e % (entries_per_image or num_entries) < live_entries
     pos = torch.arange(64, device=device)
+    for s in _chunks(num_entries):
+        t = s + _CHUNK_ENTRIES
+        yield _entry_symbols(z[s:t].to(torch.int64), diff[s:t], chroma[s:t],
+                             None if live is None else live[s:t], pos)
+
+
+def _entry_symbols(z, diff, chroma, live, pos):
+    """(n, 64) int64 entries with their (n,) DC differences, (n, 1)
+    chroma flags and (n,) live flags (None: all live) -> (ids, ampl,
+    abl), as slot_symbols."""
     nonzero = (z != 0) & (pos > 0)
     marker = torch.where(nonzero, pos, 0)
     cm = torch.cummax(marker, dim=1).values
@@ -284,8 +314,6 @@ def slot_symbols(
     run_dist = pos - run_base  # distance to the previous nonzero (>= 1)
 
     # Slot 0 codes the DC difference with the same amplitude formulas.
-    diff = dc_differences(z[:, 0], hv, init_dc, entries_per_interval,
-                          entries_per_image)
     v = torch.cat([diff[:, None], z[:, 1:]], dim=1)
     bl = bit_length(v.abs())
     ampl = torch.where(v < 0, v + (1 << bl) - 1, v) & ((1 << bl) - 1)
@@ -301,11 +329,7 @@ def slot_symbols(
                     torch.where(eob, ac_base, _TRASH)),
     )
     abl = torch.where(emit, bl, 0)
-    if live_entries is not None:
-        per_image = entries_per_image or num_entries
-        live = torch.arange(num_entries, device=device) % per_image < (
-            live_entries
-        )
+    if live is not None:
         ids = torch.where(live[:, None], ids, _TRASH)
         abl = torch.where(live[:, None], abl, 0)
     return ids, torch.where(abl > 0, ampl, 0), abl
@@ -323,23 +347,24 @@ def symbolize(
     """(E, 64) zigzag scan entries, raw DC in slot 0 -> (slot_bits,
     slot_lens), both (E, 64) int64, in stream order. luts: (dc, ac), each
     (2, 256), or (B, 2, 256) with one table pair per image."""
-    ids, ampl, abl = slot_symbols(
-        z, hv, init_dc, live_entries, entries_per_interval, entries_per_image
-    )
     dc_lut, ac_lut = luts if luts is not None else device_luts(z.device)
     # One row of 1024 codes (and a silent 1025th) per table pair.
     lut = torch.cat(
         [dc_lut.reshape(-1, 512), ac_lut.reshape(-1, 512),
          torch.zeros_like(dc_lut.reshape(-1, 512)[:, :1])], dim=1,
-    ).to(torch.int64)
-    if lut.shape[0] > 1:
-        per_image = entries_per_image or z.shape[0]
-        image = torch.arange(z.shape[0], device=z.device) // per_image
-        ids = ids + (image * (_TRASH + 1))[:, None]
-    cl = lut.reshape(-1)[ids]
-    slot_bits = ((cl & 0xFFFFF) << abl) | ampl
-    slot_lens = (cl >> 20) + abl
-    return slot_bits, slot_lens
+    ).to(torch.int64).reshape(-1)
+    per_image = entries_per_image or z.shape[0]
+    slot_bits, slot_lens = [], []
+    chunks = _slot_symbol_chunks(z, hv, init_dc, live_entries,
+                                 entries_per_interval, entries_per_image)
+    for s, (ids, ampl, abl) in zip(_chunks(z.shape[0]), chunks):
+        if lut.shape[0] > _TRASH + 1:  # one table pair an image
+            image = torch.arange(s, s + ids.shape[0], device=z.device)
+            ids = ids + (image // per_image * (_TRASH + 1))[:, None]
+        cl = lut[ids]
+        slot_bits.append(((cl & 0xFFFFF) << abl) | ampl)
+        slot_lens.append((cl >> 20) + abl)
+    return torch.cat(slot_bits), torch.cat(slot_lens)
 
 
 def symbol_histograms(
@@ -419,9 +444,10 @@ def pack_bits(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Scatter-add of MSB-first slot codes at their exclusive-cumsum
     offsets, one row per interval of entries_per_interval entries (the
-    last of each image may be short; interval_rows).
+    last of each image may be short; interval_rows), chunk by chunk of
+    entries (_chunks).
 
-    Returns (bytes (n_rows, capacity_bytes) uint8, bits (n_rows,) int32).
+    Returns (bytes (n_rows, capacity_bytes) uint8, bits (n_rows,) int64).
     Words at or past capacity_bytes / 4 of a row are dropped, never
     spilled into the next row; bits is still each row's true length,
     which is how callers detect an overflow.
@@ -432,29 +458,33 @@ def pack_bits(
         num_entries, entries_per_image, entries_per_interval, device
     )
     n_int = starts.shape[0]
-    bits = slot_bits.reshape(-1)
-    lens = slot_lens.reshape(-1)
-    ends = torch.cumsum(lens, 0)
-    offsets = ends - lens
-    start = offsets[starts * slots]
-    interval_bits = torch.cat([start[1:], ends[-1:]]) - start
-    interval = entry_row.repeat_interleave(slots)
-    word, hi, spill, lo = _split_slot_words(
-        bits, lens, offsets - start[interval]
-    )
+    entry_bits = slot_lens.sum(dim=1)
+    entry_end = torch.cumsum(entry_bits, 0)
+    start = (entry_end - entry_bits)[starts]  # each row's first bit
+    interval_bits = torch.cat([start[1:], entry_end[-1:]]) - start
+    # Each entry's first bit within its row.
+    entry_offset = entry_end - entry_bits - start[entry_row]
     num_words = capacity_bytes // 4
-    row = interval * num_words
     trash = n_int * num_words
     words = torch.zeros(trash + 1, dtype=torch.int64, device=device)
-    words.index_add_(0, torch.where(word < num_words, row + word, trash), hi)
-    words.index_add_(
-        0,
-        torch.where(spill & (word + 1 < num_words), row + word + 1, trash),
-        lo,
-    )
+    for s in _chunks(num_entries):
+        t = s + _CHUNK_ENTRIES
+        lens = slot_lens[s:t]
+        offsets = torch.cumsum(lens, 1) - lens + entry_offset[s:t, None]
+        word, hi, spill, lo = _split_slot_words(
+            slot_bits[s:t].reshape(-1), lens.reshape(-1), offsets.reshape(-1)
+        )
+        row = (entry_row[s:t] * num_words).repeat_interleave(slots)
+        words.index_add_(0, torch.where(word < num_words, row + word, trash),
+                         hi)
+        words.index_add_(
+            0,
+            torch.where(spill & (word + 1 < num_words), row + word + 1, trash),
+            lo,
+        )
     return (
         words_to_bytes(words[:trash].reshape(n_int, num_words)),
-        interval_bits.to(torch.int32),
+        interval_bits,
     )
 
 
@@ -530,7 +560,7 @@ def assemble_bitstream(
     """OR every entry's words into its row's stream at its bit offset.
 
     entry_words: (B, E, EW) int32 holding u32 words (pack_level1's);
-    offsets: (B, E) int32 bit offsets within each row; the leading axis is
+    offsets: (B, E) int64 bit offsets within each row; the leading axis is
     the restart intervals. Returns (B, capacity_bytes // 4) int32 words.
     The plain version of the pack kernel (kernels/pack.py). Entry e's word
     k lands at bit offsets[e] + 32 k; words at or past the row's capacity

@@ -13,9 +13,9 @@ written out (pipeline.scan_entries on (B, H, W, 3)):
   pair for all or, for optimized Huffman, one per image.
 
 encode_batch cuts the batch into chunks (chunk_size_images): an input-byte
-budget and an image cap (K4's int32 bit offsets are relative to a row, an
-image or a restart interval, so they bound the image, not the chunk). Each
-chunk is dispatch_chunk (device
+budget and an image cap (K4's 64-bit bit offsets are relative to a row, an
+image or a restart interval, so they bound neither). Each chunk is
+dispatch_chunk (device
 work, enqueued, nothing synchronised), fetch_chunk (one copy of the bit
 counts, then one copy of every row up to the longest payload) and
 assemble_chunk (JFIF files on the host; a member whose payload overflowed
@@ -109,7 +109,7 @@ def _entries(images, config, geom, device) -> torch.Tensor:
 
 def _encode_entries(z, config, geom, capacity, luts=None):
     """K4 over a chunk's entries: (payloads (B, capacity) or (B, n_int,
-    capacity) uint8, bits (B,) or (B, n_int) int32), on z's device."""
+    capacity) uint8, bits (B,) or (B, n_int) int64), on z's device."""
     restart = config.restart_interval
     epi = (geom.num_scan_entries if restart is None
            else entropy_ops.entries_per_interval(geom, restart))

@@ -35,7 +35,7 @@ def assemble_operands(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(E, 64) slot codes -> K5's operands, one row per interval of epi
     entries: ((n_int, epi, ENTRY_WORDS) int32 per-entry words, (n_int,
-    epi) int32 bit offsets within the row, (n_int,) int32 row bit counts).
+    epi) int64 bit offsets within the row, (n_int,) int64 row bit counts).
 
     ops/entropy.pack_entries_pallas under the interval vmap: pack_level1,
     then an exclusive cumsum per row. The short last interval is padded
@@ -52,11 +52,7 @@ def assemble_operands(
         entry_bits = torch.cat([entry_bits, entry_bits.new_zeros(pad)])
     entry_bits = entry_bits.reshape(n_int, epi)
     ends = torch.cumsum(entry_bits, dim=1)
-    return (
-        entry_words.reshape(n_int, epi, -1),
-        (ends - entry_bits).to(torch.int32),
-        ends[:, -1].to(torch.int32),
-    )
+    return entry_words.reshape(n_int, epi, -1), ends - entry_bits, ends[:, -1]
 
 
 def encode_entries(
@@ -71,7 +67,7 @@ def encode_entries(
     packer: str = "fused",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(E, 64) int16 scan entries (ops/entropy.marshal_scan_inputs) ->
-    (bytes (capacity_bytes,) uint8, total_bits int32), or with
+    (bytes (capacity_bytes,) uint8, total_bits int64), or with
     restart_mcus (bytes (n_int, capacity_bytes), bits (n_int,)): one row
     per restart interval, capacity_bytes each, its DC predictors reset to
     0 (T.81 E.2.4); the host joins the rows with RST markers.

@@ -11,8 +11,7 @@ against jpeg_encoder_tpu.parallel.batch.encode_batch on a two-device mesh
 and the small ones against the oracle. The batched pieces are held to
 their per-image forms: the front, the marshal, the statistics and K4's
 plain version over per-image rows, intervals and tables; and the chunk
-size and K4's 2^31-bit offset bound (per image, not per chunk) at its
-boundary.
+size, which no offset bound limits since K4 counts bits in 64 bits.
 """
 
 import dataclasses
@@ -167,35 +166,39 @@ def test_chunk_size_defaults():
 )
 def test_chunks_stay_under_the_offset_bound(ratio, size, budget_images,
                                             offset_images, monkeypatch):
-    """K4's int32 bit offsets are relative to a row (an image or a restart
-    interval), so the bound is one image's worst case, not the chunk's:
-    chunk_size_images is the input budget alone, and the K4 wrapper's
-    checks take more images than one int32 scan over the whole chunk could
-    hold (checked only: nothing is encoded)."""
+    """K4's bit offsets are 64-bit and relative to a row (an image or a
+    restart interval), so no offset bound limits a chunk: chunk_size_images
+    is the input budget alone, and the K4 wrapper's checks take a chunk of
+    64 images, far more than the offset_images whose worst case one int32
+    offset over the whole chunk could hold (checked only: the entries are
+    allocated, never written, and nothing is encoded)."""
     geom = EncoderConfig(subsampling_ratio=ratio).geometry(*size)
     worst = entropy_kernel.worst_case_bits(geom)
-    assert worst < 2**31
     assert offset_images * worst < 2**31 <= (offset_images + 1) * worst
     assert batch.chunk_size_images(geom) == budget_images
     monkeypatch.setattr(batch, "CHUNK_INPUT_BUDGET", 1 << 40)
     assert batch.chunk_size_images(geom) == 64
-    many = torch.zeros(((offset_images + 1) * geom.num_scan_entries, 64),
-                       dtype=torch.int16)
+    many = torch.empty((64 * geom.num_scan_entries, 64), dtype=torch.int16)
     assert entropy_kernel._check_operands(
         many, geom, 1024, None, None, geom.num_scan_entries
-    ) == offset_images + 1
+    ) == 64
+    entropy_kernel._check_kernel_operands(
+        entropy.worst_case_capacity_bytes(geom))
 
 
 def test_single_image_past_the_offset_bound_is_one_chunk():
     """A frame whose own worst case passes 2^31 bits gets a chunk of one
-    (its input passes the budget), which K4 refuses before any work."""
+    (its input passes the budget), and K4's checks take its operands at
+    the worst-case capacity (checked only: nothing is encoded)."""
     geom = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(8192, 8192)
     assert entropy_kernel.worst_case_bits(geom) >= 2**31
     assert batch.chunk_size_images(geom) == 1
-    block = torch.zeros((1, 64), dtype=torch.int16)
-    one = block.expand(geom.num_scan_entries, 64)
-    with pytest.raises(ValueError, match="int32 offsets"):
-        entropy_kernel.encode_entries(one, geom, 1024)
+    one = torch.empty((geom.num_scan_entries, 64), dtype=torch.int16)
+    capacity = entropy.worst_case_capacity_bytes(geom)
+    assert 8 * capacity >= 2**31
+    assert entropy_kernel._check_operands(
+        one, geom, capacity, None, None, None) == 1
+    entropy_kernel._check_kernel_operands(capacity)
 
 
 # The JAX package's batch on a two-device CPU mesh (its jitted program is

@@ -211,11 +211,17 @@ def test_entropy_wrapper_rejects_bad_operands():
         entropy_kernel.encode_entries(z, geom, 1023)
     with pytest.raises(ValueError):
         entropy_kernel.encode_entries(z, geom, 1024, torch.zeros(2))
-    # 4:4:4 at 16384 x 16384: the worst case (~2.2e10 bits) overflows the
-    # int32 offsets and bit count, so the wrapper refuses the geometry.
+    # 4:4:4 at 16384 x 16384: the worst case (~2.2e10 bits) passes 2^31
+    # bits, which the 64-bit offsets and counts take; the geometry is no
+    # longer refused, only the z that does not fit it. The kernel's one
+    # bound is a row of 2^31 words or more.
     huge = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(16384, 16384)
-    with pytest.raises(ValueError, match="int32"):
+    assert entropy_kernel.worst_case_bits(huge) > 2**34
+    with pytest.raises(ValueError, match="whole number"):
         entropy_kernel.encode_entries(z, huge, 1024)
+    entropy_kernel._check_kernel_operands(4 * (2**31 - 1))
+    with pytest.raises(ValueError, match="4-byte words"):
+        entropy_kernel._check_kernel_operands(2**33)
 
 
 def _random_slots(rng, num_entries, slots=65, max_len=27):
@@ -250,7 +256,7 @@ def _level1(rng, geom, cap_entries=None):
     slot_bits, slot_lens = entropy.symbolize(z, geom.h_factor * geom.v_factor)
     words, entry_bits = entropy.pack_level1(slot_bits, slot_lens)
     offsets = torch.cumsum(entry_bits, 0) - entry_bits
-    return words, offsets.to(torch.int32), int(entry_bits.sum()), slot_bits, slot_lens
+    return words, offsets, int(entry_bits.sum()), slot_bits, slot_lens
 
 
 @pytest.mark.parametrize("ratio", RATIOS)
@@ -266,7 +272,8 @@ def test_assemble_bitstream_matches_pallas_interpret(ratio, rng):
     got = pack_kernel.assemble_bitstream(words[None], offsets[None], cap)
     assert pack_kernel.PACK.launches == before  # the CPU path launches nothing
     want = pack_pallas.assemble_bitstream_pallas(
-        jnp.asarray(words.numpy().view(np.uint32)), jnp.asarray(offsets.numpy()),
+        jnp.asarray(words.numpy().view(np.uint32)),
+        jnp.asarray(offsets.numpy().astype(np.int32)),
         cap, interpret=True,
     )
     assert got.shape == (1, cap // 4)
@@ -310,7 +317,7 @@ def test_assemble_packer_matches_jax_pallas_interpret(rng):
 
 def test_pack_wrapper_rejects_bad_operands():
     words = torch.zeros((1, 6, entropy.ENTRY_WORDS), dtype=torch.int32)
-    offsets = torch.zeros((1, 6), dtype=torch.int32)
+    offsets = torch.zeros((1, 6), dtype=torch.int64)
     with pytest.raises(ValueError, match="capacity"):
         pack_kernel.assemble_bitstream(words, offsets, 1022)
     with pytest.raises(ValueError, match="entry_words"):
@@ -319,6 +326,8 @@ def test_pack_wrapper_rejects_bad_operands():
         pack_kernel.assemble_bitstream(words[0], offsets, 1024)
     with pytest.raises(ValueError, match="offsets"):
         pack_kernel.assemble_bitstream(words, offsets[:, :5], 1024)
+    with pytest.raises(ValueError, match="int64"):
+        pack_kernel.assemble_bitstream(words, offsets.to(torch.int32), 1024)
     with pytest.raises(ValueError, match="packer"):
         scan.encode_entries(torch.zeros((6, 64), dtype=torch.int16),
                             EncoderConfig().geometry(16, 16), 64,

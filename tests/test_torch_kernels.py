@@ -27,11 +27,12 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_encoder_torch import pipeline, scan, tables
+from jpeg_encoder_torch import constants, pipeline, scan, tables
 from jpeg_encoder_torch.kernels import _build
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.kernels import pack as pack_kernel
+from jpeg_encoder_torch.ops import dct as dct_ops
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.ops import sample
 from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
@@ -213,6 +214,38 @@ def test_fastdct_kernel_within_tolerance(cuda, shapes, quality):
         d = (got.cpu().to(torch.int32) - want.to(torch.int32)).abs()
         assert int(d.max()) <= 1
         assert float((d > 0).float().mean()) <= rate
+
+
+def _fast_exact(planes, quality):
+    """(sum_k px[k] * K_zz[j][k] in float64, the divisor of each
+    coefficient, the sum of |px[k] * K_zz[j][k]|), (N, 64) each."""
+    kzz = constants.fast_kron_zigzag().astype(np.float64)
+    *_, q_luma, q_chroma = dct_ops.device_constants(quality, torch.device("cpu"))
+    px = [sample.blockify(torch.from_numpy(p)).numpy().astype(np.float64) - 128
+          for p in planes]
+    q = np.concatenate([np.broadcast_to((q_luma if i == 0 else q_chroma)
+                                        .numpy().astype(np.float64),
+                                        (p.shape[0], 64))
+                        for i, p in enumerate(px)])
+    px = np.concatenate(px)
+    return px @ kzz.T, q, np.abs(px) @ np.abs(kzz).T
+
+
+def assert_fast_tolerance(got, want, planes, quality, rate=None):
+    """max |diff| 1; every mismatch a tie: the exact value / q lies within
+    2^-15 of the sum of |terms| (far above any float32 order's error, far
+    below a wrong basis, split or index) of a truncation boundary, so two
+    float32 orders may fall on either side of it. rate: the largest
+    mismatch rate allowed."""
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32)).reshape(-1, 64)
+    assert d.max() <= 1
+    exact, q, magnitude = _fast_exact(planes, quality)
+    v = exact / q
+    boundary = np.where(np.abs(np.round(v)) >= 1, np.round(v), np.sign(v))
+    tie = np.abs(v - boundary) * q <= 2.0**-15 * magnitude
+    assert tie[d > 0].all(), "a mismatch that is not a rounding tie"
+    if rate is not None:
+        assert (d > 0).mean() < rate, f"mismatch rate {(d > 0).mean()}"
 
 
 @pytest.mark.cuda
@@ -610,3 +643,105 @@ def test_encode_batch_on_card_matches_cpu(cuda, config):
     assert entropy_kernel.ENTROPY.launches == before + 1
     for rgb, got in zip(images, files):
         assert got == pipeline.encode_array(rgb, config, device="cpu").file_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quality", [None, 90, 100])
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("content", EXTREMES)
+def test_fastdct_kernel_extreme_content(cuda, content, ratio, quality):
+    """K2 (bf16 split on the tensor cores) on flat, saturated, checkerboard
+    and one-block-high planes, against its plain version and the exact K1:
+    max |diff| 1, every mismatch a float32 rounding tie (at quality 100 the
+    plain version itself misses the 5e-4 rate against K1 on random
+    content: coefficients whose exact value is an integer fall either
+    way)."""
+    planes = extreme_planes(content, ratio)
+    cpu = [torch.from_numpy(p) for p in planes]
+    dev = [p.to(cuda) for p in cpu]
+    before = dct_kernel.FASTDCT.launches
+    got = torch.cat(dct_kernel.real_dct_fast_planes_zigzag(*dev, quality))
+    torch.cuda.synchronize()
+    assert dct_kernel.FASTDCT.launches == before + 1
+    got = got.cpu().numpy()
+    for want in (dct_kernel.real_dct_fast_planes_zigzag(*cpu, quality),
+                 dct_kernel.real_dct_quant_planes_zigzag(*dev, quality)):
+        want = torch.cat(want).cpu().numpy()
+        assert_fast_tolerance(got, want, planes, quality)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descale", [False, True])
+@pytest.mark.parametrize("quality", [None, 90, 100])
+@pytest.mark.parametrize(
+    "shapes",
+    [((8, 8), (8, 8)), ((24, 40), (24, 40)), ((40, 72), (24, 40)),
+     ((1080, 1928), (1080, 1928))],
+)
+def test_bindct_kernel_ends_mid_cta(cuda, shapes, quality, descale):
+    """K3's CTAs take 32 blocks, 8 threads a block: planes whose block
+    count is not a multiple of 32 (3, 45, 75 and 97,605 blocks) end inside
+    a CTA; exact, in both quantization modes."""
+    cpu = _random_planes(shapes, 10)
+    assert sum(p.numel() // 64 for p in cpu) % 32
+    before = dct_kernel.BINDCT.launches
+    got = dct_kernel.bin_dct_quant_planes_zigzag(
+        *(p.to(cuda) for p in cpu), quality, descale)
+    torch.cuda.synchronize()
+    assert dct_kernel.BINDCT.launches == before + 1
+    want = dct_kernel.bin_dct_quant_planes_zigzag(*cpu, quality, descale)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def _periodic_bytes(pattern, total_bits, start, count):
+    """Bytes start..start + count of a stream of total_bits bits that
+    repeats pattern (a 0/1 array), zero-filled past its end."""
+    pos = np.arange(start * 8, (start + count) * 8)
+    bits = np.where(pos < total_bits, pattern[pos % pattern.size], 0)
+    return np.packbits(bits.astype(np.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("restart", [None, 65535])
+def test_entropy_kernel_row_past_2_31_bits(cuda, restart):
+    """K4 on 7680x4320 4:4:4 entries that repeat one MCU of +-1023 AC
+    values (4,920 bits an MCU, 2.55e9 in all): unbroken, one row of more
+    than 2^31 true bits, coded exactly past bit 2^31 (its words there, at
+    its start and at its end against the plain coder's one period,
+    repeated); restart-framed every 65535 MCUs, eight rows whose whole
+    passes 2^31 bits, each row exact at both ends."""
+    config = EncoderConfig(subsampling_ratio=(4, 4, 4))
+    geom = config.geometry(7680, 4320)
+    block = np.where(np.arange(64) % 2, 1023, -1023).astype(np.int16)
+    block[0] = 0  # DC 0 everywhere: every MCU codes the same bits
+    mcu = torch.from_numpy(np.tile(block, (3, 1)))
+    one, one_bits = entropy_kernel.encode_entries(
+        mcu, config.geometry(8, 8), 1024)
+    period = int(one_bits)
+    pattern = np.unpackbits(one.numpy())[:period]
+    per_row = geom.num_mcus if restart is None else restart
+    rows = -(-geom.num_mcus // per_row)
+    row_mcus = [min(per_row, geom.num_mcus - r * per_row) for r in range(rows)]
+    capacity = (max(row_mcus) * period // 32 + 1) * 4
+    epi = (None if restart is None
+           else entropy_ops.entries_per_interval(geom, restart))
+    z = mcu.to(cuda).repeat(geom.num_mcus, 1)
+    before = entropy_kernel.ENTROPY.launches
+    got, bits = entropy_kernel.encode_entries(z, geom, capacity,
+                                              entries_per_interval=epi)
+    torch.cuda.synchronize()
+    assert entropy_kernel.ENTROPY.launches == before + 1
+    got = got.reshape(rows, capacity)
+    assert bits.dtype == torch.int64
+    assert bits.reshape(-1).tolist() == [m * period for m in row_mcus]
+    assert sum(row_mcus) * period > 2**31
+    for r, m in enumerate(row_mcus):
+        total = m * period
+        starts = [0, total // 8 - 256]
+        if total > 2**31:
+            starts.append(2**28 - 256)  # bytes around bit 2^31
+        for s in starts:
+            count = min(512, capacity - s)
+            want = _periodic_bytes(pattern, total, s, count)
+            assert np.array_equal(got[r, s:s + count].cpu().numpy(), want)

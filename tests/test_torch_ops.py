@@ -21,7 +21,8 @@ from jpeg_encoder_tpu.ops import sample as jax_sample
 from jpeg_encoder_torch import constants
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.ops import color, dct, sample
-from test_torch_kernels import EXTREMES, extreme_planes
+from test_torch_kernels import (EXTREMES, assert_fast_tolerance,
+                                extreme_planes)
 
 RATIOS = [(4, 4, 4), (4, 2, 2), (4, 2, 0)]
 
@@ -433,3 +434,112 @@ def test_realdct_u_chains_model_matches_plain(content, ratio, quality):
     want = dct.real_dct_quant_planes_zigzag(*(_t(p) for p in planes), quality)
     for g, w in zip(got, want):
         assert np.array_equal(g, w.numpy())
+
+
+# K2's design premise, held here where there is no card: the TPU kernel's
+# 3-term bf16 split, its products accumulated in float32 from the smallest
+# term to the largest, stays within the --fast-dct tolerance. The model adds
+# each m16n8k16 step's 16 products (exact: a bf16 term times an integer
+# pixel in [-128, 127] has at most 16 significant bits) to a float32
+# accumulator, rounding once a step: m3's four k-steps, then m2's, then m1's.
+def _fast_split_model(planes, quality):
+    terms = [constants.bf16_to_f32(t).astype(np.float64)
+             for t in constants.fast_kron_split()]
+    *_, q_luma, q_chroma = dct.device_constants(quality, torch.device("cpu"))
+    out = []
+    for i, plane in enumerate(planes):
+        px = sample.blockify(_t(plane)).numpy().astype(np.float64) - 128
+        acc = np.zeros((px.shape[0], 64), np.float32)
+        for term in (terms[2], terms[1], terms[0]):
+            for k0 in range(0, 64, 16):
+                step = px[:, k0:k0 + 16] @ term[:, k0:k0 + 16].T
+                acc = (acc.astype(np.float64) + step).astype(np.float32)
+        q = (q_luma if i == 0 else q_chroma).numpy()
+        out.append(np.trunc(acc / q).astype(np.int16))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("quality", [None, 90, 100])
+@pytest.mark.parametrize("ratio", RATIOS)
+@pytest.mark.parametrize("content", ("random",) + EXTREMES)
+def test_fast_split_model_matches_plain(content, ratio, quality):
+    """The model against the plain version (the full float32 matmul) on
+    random and extreme planes: within max |diff| 1, every mismatch a tie."""
+    planes = extreme_planes(content, ratio, seed=4)
+    got = _fast_split_model(planes, quality)
+    want = torch.cat(dct.real_dct_fast_planes_zigzag(
+        *(_t(p) for p in planes), quality)).numpy()
+    assert_fast_tolerance(got, want, planes, quality)
+
+
+@pytest.mark.parametrize("quality", [None, 90, 100])
+def test_fast_split_model_within_tolerance(quality):
+    """The model against the plain version (rate < 1e-3) and the exact
+    RealDCT (rate <= 5e-4) at quality None and 90, on 3,072 random blocks.
+    At quality 100 (q = 1) the plain version itself misses the second rate
+    against the exact RealDCT (about 1.5e-3: coefficients whose exact value
+    is an integer, the DC of every block whose pixel sum is a multiple of 8
+    among them, fall on either side by a float32 rounding), so there the
+    model is held to max |diff| 1 and ties alone, as is the plain version
+    against the exact RealDCT."""
+    rng = np.random.default_rng(21)
+    planes = _planes(rng, (256, 512), (128, 256))
+    got = _fast_split_model(planes, quality)
+    tplanes = [_t(p) for p in planes]
+    plain = torch.cat(dct.real_dct_fast_planes_zigzag(*tplanes, quality)).numpy()
+    exact = torch.cat(dct.real_dct_quant_planes_zigzag(*tplanes, quality)).numpy()
+    hold = quality != 100
+    assert_fast_tolerance(got, plain, planes, quality, 1e-3 if hold else None)
+    assert_fast_tolerance(got, exact, planes, quality, 5e-4 if hold else None)
+    assert_fast_tolerance(plain, exact, planes, quality,
+                           5e-4 if hold else None)
+
+
+@pytest.mark.parametrize("quality", [None, 90, 100])
+def test_fast_split_model_matches_pallas_interpret(quality):
+    """The model against the TPU kernel it ports, in interpret mode (the
+    same split, another float32 order): within max |diff| 1, ties alone."""
+    rng = np.random.default_rng(22)
+    planes = _planes(rng, (32, 64), (16, 32))
+    got = _fast_split_model(planes, quality)
+    want = dct_pallas.real_dct_quant_planes_zigzag_pallas_t(
+        *(jnp.asarray(p) for p in planes), interpret=True, quality=quality,
+        fast=True,
+    )
+    want = np.concatenate([np.asarray(w) for w in want])
+    assert_fast_tolerance(got, want, planes, quality,
+                           1e-3 if quality != 100 else None)
+
+
+def _k2_trunc_quotient(acc: np.ndarray, q: np.float32) -> np.ndarray:
+    """fastdct.cu's trunc_quotient in float32, each operation rounded to
+    nearest as on the card: x = acc * (1 / q); the true divide only where
+    |x| >= 0.5 and x lies within 2^-20 |x| of an integer."""
+    f32 = np.float32
+    x = acc * (f32(1) / q)
+    ax = np.abs(x)
+    near = (ax >= f32(0.5)) & (np.abs(x - np.rint(x)) <= ax * f32(2.0**-20))
+    return np.trunc(np.where(near, acc / q, x))
+
+
+@pytest.mark.parametrize("q_range", [(1, 64), (64, 160), (160, 256)])
+def test_k2_divide_rule_is_true_division(q_range):
+    """K2's epilogue: trunc of acc * (1 / q), with the true divide near a
+    truncation boundary, is trunc(acc / q) (IEEE, rounded to nearest) for
+    every q in 1..255, on float32 values within 16 ulps of every boundary
+    k * q (|k| <= 2048) and on random values across the coefficients'
+    range."""
+    rng = np.random.default_rng(q_range[0])
+    ulps = np.arange(-16, 17, dtype=np.int64)
+    for qi in range(*q_range):
+        q = np.float32(qi)
+        base = (np.arange(-2048, 2049) * qi).astype(np.float32)
+        bits = base.view(np.int32).astype(np.int64)[:, None] + ulps
+        acc = bits.astype(np.int32).view(np.float32).reshape(-1)
+        acc = np.concatenate([
+            acc[np.isfinite(acc)],
+            rng.uniform(-2048.0 * qi, 2048.0 * qi, 4096).astype(np.float32),
+        ])
+        want = np.trunc(acc / q)
+        assert want.dtype == np.float32
+        assert np.array_equal(_k2_trunc_quotient(acc, q), want), qi

@@ -338,3 +338,47 @@ def test_bindct_checkerboard_leaves_the_scan_range():
         pipeline.encode_array(rgb, checked, device="cpu")
     with pytest.raises(ValueError, match="AC coefficient bit length"):
         oracle.encode_oracle(rgb, jax_config(config))
+
+
+def _gradient(height, width):
+    """A smooth RGB gradient: red across, green down, blue diagonal."""
+    y, x = np.mgrid[0:height, 0:width]
+    return np.stack([x * 255 // (width - 1), y * 255 // (height - 1),
+                     (x + y) * 255 // (width + height - 2)],
+                    axis=-1).astype(np.uint8)
+
+
+def test_large_image_matches_jax():
+    """7680x4320 at 4:4:4: 1,555,200 scan entries, whose worst case (2.7e9
+    bits) passes 2^31. The port once refused it on every path; its CPU
+    path (int64 throughout, chunked) now gives the JAX package's file."""
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+
+    config = EncoderConfig(subsampling_ratio=(4, 4, 4))
+    rgb = _gradient(4320, 7680)
+    geom = config.geometry(7680, 4320)
+    assert entropy_kernel.worst_case_bits(geom) >= 2**31
+    got = pipeline.encode_array(rgb, config, device="cpu")
+    want = jax_pipeline.encode_array(rgb, jax_config(config))
+    assert got.bit_length == want.bit_length
+    assert got.file_bytes == want.file_bytes
+
+
+@pytest.mark.parametrize("restart", [1, 120, 65535])
+def test_large_restart_geometry_is_taken(restart):
+    """Restart-framed, the same 7680x4320 4:4:4 geometry: K4's checks take
+    its entries at the interval capacity (checked only: the entries are
+    allocated, never written, and nothing is encoded), and no check is
+    left per interval or for the whole image."""
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    geom = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(7680, 4320)
+    assert entropy_kernel.worst_case_bits(geom) >= 2**31
+    pipeline.check_restart_geometry(geom)
+    epi = entropy_ops.entries_per_interval(geom, restart)
+    capacity = pipeline.restart_worst_case_capacity_bytes(geom, restart)
+    z = torch.empty((geom.num_scan_entries, 64), dtype=torch.int16)
+    assert entropy_kernel._check_operands(z, geom, capacity, None, None,
+                                          epi) == 1
+    entropy_kernel._check_kernel_operands(capacity)

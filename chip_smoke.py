@@ -1,6 +1,6 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from jpeg_encoder_torch/csrc (one nvcc per
 source, all at once), holds each against its plain PyTorch version (K1
@@ -26,16 +26,26 @@ and 12 x 4K at 4:2:0, 4:2:2, 4:4:4, binDCT, --fast-dct, restart 120 and 7,
 optimize alone and with restart 120, a forced single-image retry; every
 file against the single-image card path, a few against the CPU path) and
 the per-block tier (K6 on every plane of the 1080p corpus, against K1 and
-K3) and a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
-2^31 bits, against the CPU path), each path between a reset and a read of
-the launch counts, and times
+K3), a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
+2^31 bits, against the CPU path) and the stream engine
+(jpeg_encoder_torch.parallel.stream.encode_paths: 64 1080p and 15 4K BMP
+files to JFIF files, every file against encode_batch's, 8 also under
+restart and optimize; under the profiler every host-to-device copy must be
+pinned and one at least must overlap a kernel), each path between a reset
+and a read of the launch counts, and times
 the kernels (beside their bounds), the batch against a loop of single
 encodes, and the end-to-end encodes. It also prints each kernel's
 registers, spills and shared memory as ptxas reports them, the
 torch.matmul yardstick of K2 by events and device-busy time beside K2's
-busy time and mismatch rates, and the
+busy time and mismatch rates, the
 device operations of one K4 call (failing unless they are the memset and
-one kernel). Any mismatch or error exits non-zero before the final line,
+one kernel) and of one K5 call (failing unless it is one kernel), the
+stream against a synchronous read-encode-write loop and the pinned and
+pageable H2D rates. With --parent DIR (a checkout of an earlier commit)
+it also builds DIR's sources of the kernels that differ and times both
+builds on the same operands. K5 also runs on adversarial operands (runs
+of 0-bit entries, 56-word entries, a row past bit 2^31, cut capacities).
+Any mismatch or error exits non-zero before the final line,
 which is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -46,6 +56,7 @@ jpeg_encoder_tpu.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import statistics
@@ -96,7 +107,10 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 def device_ops(fn, reps: int = 5) -> list[tuple[str, float, float]]:
     """The device operations (kernels, memsets, copies) of fn(), from
     torch.profiler over reps warm calls: (name, count per call, device ms
-    per call)."""
+    per call). The profiler now and then keeps only part of a window's
+    events, so an operation's time per call is the mean duration of the
+    events kept times its count per call (at least 1), never its summed
+    time over reps."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -105,9 +119,13 @@ def device_ops(fn, reps: int = 5) -> list[tuple[str, float, float]]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [(e.key, e.count / reps, e.self_device_time_total / 1e3 / reps)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.count:
+            per_call = max(1, round(e.count / reps))
+            ops.append((e.key, per_call,
+                        e.self_device_time_total / 1e3 / e.count * per_call))
+    return ops
 
 
 def busy_ms(fn, reps: int = REPS) -> float | None:
@@ -391,17 +409,72 @@ def k4_interval_phase(cuda, images_1080) -> float:
     return float(worst)
 
 
+def adversarial_pack_operands(case: str, seed: int = 0):
+    """K5 operands at the edges of its walk, meeting its precondition
+    (offsets an exclusive cumsum of the bit counts, words zero past each
+    entry's count): "zero-runs" (a leading run of 3,000 0-bit entries,
+    scattered runs, a dead tail), "max-words" (entries of up to the 56
+    words of pack_level1), "past-2^31" (row 0 starts at bit 2^31 - 7,005
+    and crosses 2^31). Returns (words (rows, E, 56) int32, offsets (rows,
+    E) int64, row end bits (rows,) int64), on the CPU."""
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    ew = entropy_ops.ENTRY_WORDS
+    rng = np.random.default_rng(seed)
+    start = 0
+    if case == "zero-runs":
+        bits = rng.integers(1, 41, (3, 4000))
+        bits[0, :3000] = 0
+        bits[1, rng.random(4000) < 0.8] = 0
+        bits[2, 1000:] = 0
+    elif case == "max-words":
+        bits = rng.choice([ew * 32, ew * 32 - 1, ew * 32 - 31, 1760, 33, 32,
+                           31, 1, 0], (2, 200))
+    else:
+        bits = rng.integers(0, 300, (2, 300))
+        start = 2**31 - 7005
+    bits = bits.astype(np.int64)
+    words = rng.integers(0, 2**32, bits.shape + (ew,), dtype=np.uint64)
+    full, rem = bits[..., None] // 32, bits[..., None] % 32
+    partial = np.where(rem > 0, ((1 << rem) - 1) << (32 - rem), 0)
+    k = np.arange(ew)
+    mask = np.where(k < full, 0xFFFFFFFF, np.where(k == full, partial, 0))
+    words = (words & mask.astype(np.uint64)).astype(np.uint32).view(np.int32)
+    ends = np.cumsum(bits, axis=1)
+    offsets = ends - bits
+    offsets[0] += start
+    row_ends = ends[:, -1] + np.where(np.arange(len(bits)) == 0, start, 0)
+    return (torch.from_numpy(words), torch.from_numpy(offsets),
+            torch.from_numpy(row_ends))
+
+
 def k5_phase(cuda, images_1080) -> float:
     """K5 vs its plain version on CPU tensors: the assemble tier's operands
     of 1080p corpus content at 4:2:0 and 4:4:4, as one row (the unbroken
     scan) and as one row per restart interval of 120 and of 1 MCUs, at a
-    fitting capacity and at 16 bytes a row. Returns the max |error|."""
+    fitting capacity and at 16 bytes a row; then adversarial operands
+    (adversarial_pack_operands: 0-bit runs, 56-word entries, a row past
+    bit 2^31) at a fitting capacity and, but past 2^31, at one that cuts an
+    entry mid-word and is not a multiple of 16 bytes; and the device
+    operations of one call (the kernel alone: no memset). Returns the max
+    |error|."""
     from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch import scan
     from jpeg_encoder_torch.kernels import pack as pack_kernel
     from jpeg_encoder_torch.ops import entropy as entropy_ops
 
     worst = 0
+
+    def compare(label, words, offsets, cap):
+        nonlocal worst
+        got = pack_kernel.assemble_bitstream(words.to(cuda), offsets.to(cuda),
+                                             cap)
+        torch.cuda.synchronize()
+        want = pack_kernel.assemble_bitstream(words, offsets, cap)
+        err = max_err(got, want)
+        worst = max(worst, err)
+        check(err == 0, f"K5 {label} capacity {cap}: max |err| {err}")
+
     for ratio in ((4, 2, 0), (4, 4, 4)):
         geom = EncoderConfig(subsampling_ratio=ratio).geometry(1920, 1080)
         z = card_entries(cuda, images_1080["foliage"], geom)
@@ -414,17 +487,34 @@ def k5_phase(cuda, images_1080) -> float:
                 slot_bits, slot_lens, epi or geom.num_scan_entries)
             fit = (int(row_bits.max()) // 32 + 2) * 4
             for cap in (fit, 16):
-                got = pack_kernel.assemble_bitstream(
-                    words.to(cuda), offsets.to(cuda), cap)
-                torch.cuda.synchronize()
-                want = pack_kernel.assemble_bitstream(words, offsets, cap)
-                err = max_err(got, want)
-                worst = max(worst, err)
-                check(err == 0, f"K5 {ratio} interval {interval} capacity "
-                      f"{cap}: max |err| {err}")
+                compare(f"{ratio} interval {interval}", words, offsets, cap)
             print(f"K5 1080p {ratio} {words.shape[0]} rows of "
                   f"{words.shape[1]} entries: kernel == plain (capacity "
                   f"{fit} B and 16 B a row)", flush=True)
+    for case in ("zero-runs", "max-words", "past-2^31"):
+        words, offsets, ends = adversarial_pack_operands(case)
+        fit = (int(ends.max()) // 32 + 9) * 4
+        caps = [fit] if case == "past-2^31" else [
+            fit, 4 * (int(ends.min()) // 64 // 4 * 4 + 3)]
+        for cap in caps:
+            compare(case, words, offsets, cap)
+        print(f"K5 adversarial {case}: {tuple(words.shape)} entries, last "
+              f"offset {int(offsets.max())}: kernel == plain (capacity "
+              f"{' and '.join(map(str, caps))} B a row)", flush=True)
+    words, offsets, ends = adversarial_pack_operands("zero-runs")
+    words, offsets = words.to(cuda), offsets.to(cuda)
+    cap = (int(ends.max()) // 32 + 9) * 4
+    for _ in range(3):  # an empty trace is retried, as in busy_ms
+        ops = device_ops(lambda: pack_kernel.assemble_bitstream(
+            words, offsets, cap))
+        count = sum(c for _, c, _ in ops)
+        if count:
+            break
+    check(count == 1 and "assemble_kernel" in ops[0][0],
+          f"one K5 call ran other than its one kernel: {ops}")
+    print(f"K5 device operations per call: {count:g} ("
+          + "; ".join(f"{name[:50]} x{c:g}" for name, c, _ in ops) + ")",
+          flush=True)
     return float(worst)
 
 
@@ -949,7 +1039,7 @@ def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
         geom = default.geometry(images.shape[2], images.shape[1])
         chunk = images[: batch.chunk_size_images(geom)]
         cap = batch.chunk_capacity_bytes(default, geom)
-        z = batch._entries(chunk, default, geom, cuda)
+        z = batch.front_entries(batch.upload_chunk(chunk, cuda), default, geom)
         stages = {
             "dispatch_chunk": lambda: batch.dispatch_chunk(
                 chunk, default, geom, cap, device=cuda),
@@ -976,6 +1066,185 @@ def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
               f"{batch_ms / n:.3f} ms/image, loop of encode_array "
               f"{loop_ms / n:.3f} ms/image, numpy RGB in -> JFIF bytes out "
               f"({card})", flush=True)
+    return counts
+
+
+def h2d_rates(cuda, shape) -> tuple[float, float]:
+    """GB/s of one host-to-device copy of a (B, H, W, 3) uint8 chunk from
+    pinned memory on a side stream (the stream engine's upload) and from
+    pageable memory (encode_batch's), by CUDA events, median of 5."""
+    host = torch.empty(shape, dtype=torch.uint8, pin_memory=True)
+    pageable = np.zeros(shape, np.uint8)
+    dev = torch.empty(shape, dtype=torch.uint8, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        pinned_ms = cuda_ms(lambda: dev.copy_(host, non_blocking=True),
+                            reps=5)
+    pageable_ms = cuda_ms(lambda: dev.copy_(torch.from_numpy(pageable)),
+                          reps=5)
+    return (host.numel() / pinned_ms / 1e6, host.numel() / pageable_ms / 1e6)
+
+
+def trace_overlap(trace_path: str) -> tuple[list[str], int, int, float]:
+    """From a torch.profiler chrome trace: (the names of the host-to-device
+    copies, how many copies overlap a kernel in time, how many kernels ran,
+    the overlapped microseconds)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel")
+    overlapping, overlap_us = 0, 0.0
+    for c in copies:
+        a, b = c["ts"], c["ts"] + c["dur"]
+        shared = sum(max(0.0, min(b, k1) - max(a, k0)) for k0, k1 in kernels)
+        overlapping += shared > 0
+        overlap_us += shared
+    return [c["name"] for c in copies], overlapping, len(kernels), overlap_us
+
+
+def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
+    """The stream engine, driven (parallel.stream.encode_paths on the card,
+    BMP files in, JFIF files written by emit): 64 1080p frames (three
+    chunks of <= 21 at the 128 MiB budget) and 15 4K frames (three chunks
+    of 5) at 4:2:0, corpus content, in one call (two dimension groups).
+    Every file == encode_batch's on the card; 8 of the 1080p files also
+    under restart 120, optimize, and optimize with restart 120, each ==
+    the single-image card file. Then ms/image and files/s of the stream
+    against a synchronous loop (read_batch -> encode_batch -> write, chunk
+    by chunk) over the same files, the loader's decode and the writer's
+    busy seconds, the pinned and pageable H2D rates, and, under the
+    profiler, a check that every host-to-device copy of a 1080p stream run
+    is a pinned copy and that at least one overlaps a kernel (of another
+    chunk: a chunk's own kernels wait on its copies). Returns the stream
+    path's launch counts."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.io import bmp
+    from jpeg_encoder_torch.parallel import batch, stream
+
+    default = EncoderConfig()
+    out_dir = os.path.join(tmp, "out")
+    os.makedirs(out_dir)
+    sets = {}
+    for label, images in (
+            ("1920x1080", variants(list(images_1080.values()), 64)),
+            ("3840x2160", variants(list(images_4k.values()), 15))):
+        paths = []
+        for i, rgb in enumerate(images):
+            paths.append(os.path.join(tmp, f"{label}_{i:02d}.bmp"))
+            bmp.write(paths[-1], rgb)
+        sets[label] = (images, paths)
+
+    def writing(written: dict):
+        def emit(path, data):
+            dst = os.path.join(out_dir, os.path.basename(path)[:-4] + ".jpg")
+            with open(dst, "wb") as f:
+                f.write(data)
+            written[path] = dst
+        return emit
+
+    written, runs = {}, []
+    every = sets["1920x1080"][1] + sets["3840x2160"][1]
+    counts = counted("stream", lambda: runs.append(stream.encode_paths(
+        every, default, writing(written), device=cuda)), ("realdct", "entropy"))
+    check(runs[0].encoded == len(every), f"stream encoded {runs[0].encoded}")
+    for label, (images, paths) in sets.items():
+        geom = default.geometry(images.shape[2], images.shape[1])
+        want = batch.encode_batch(images, default, device=cuda)
+        for i, (path, w) in enumerate(zip(paths, want)):
+            with open(written[path], "rb") as f:
+                check(f.read() == w, f"stream {label} file {i} != "
+                      "encode_batch on the card")
+        chunks = -(-len(paths) // batch.chunk_size_images(geom))
+        print(f"stream {len(paths)} x {label} 4:2:0 ({chunks} chunks): every "
+              "written file == encode_batch on the card", flush=True)
+    optimize = EncoderConfig(optimize_huffman=True)
+    hd, hd_paths = sets["1920x1080"][0][:8], sets["1920x1080"][1][:8]
+    for name, config in (
+            ("restart 120", EncoderConfig(restart_interval=120)),
+            ("optimize", optimize),
+            ("optimize restart 120",
+             dataclasses.replace(optimize, restart_interval=120))):
+        got = {}
+        stream.encode_paths(hd_paths, config, got.__setitem__, device=cuda)
+        for i, (path, rgb) in enumerate(zip(hd_paths, hd)):
+            want = pipeline.encode_array(rgb, config, device=cuda).file_bytes
+            check(got[path] == want, f"stream {name} file {i} != encode_array "
+                  "on the card")
+        print(f"stream 8 x 1920x1080 4:2:0 {name}: every file == encode_array "
+              "on the card", flush=True)
+
+    for label, (images, paths) in sets.items():
+        geom = default.geometry(images.shape[2], images.shape[1])
+        chunk = batch.chunk_size_images(geom)
+        n = len(paths)
+        emit = writing({})
+        stream_runs = []
+
+        def run_stream():
+            stream_runs.append(stream.encode_paths(paths, default, emit,
+                                                   device=cuda))
+
+        def run_loop():
+            for start in range(0, n, chunk):
+                part = paths[start:start + chunk]
+                files = batch.encode_batch(bmp.read_batch(part), default,
+                                           device=cuda)
+                for path, data in zip(part, files):
+                    emit(path, data)
+
+        # Turns: stream, loop, loop, stream; each the mean of two medians.
+        s1, l1, l2, s2 = (host_ms(f, reps=3) for f in
+                          (run_stream, run_loop, run_loop, run_stream))
+        stream_ms, loop_ms = (s1 + s2) / 2 / n, (l1 + l2) / 2 / n
+        last = stream_runs[-1]
+        pinned, pageable = h2d_rates(cuda, (chunk, geom.height, geom.width, 3))
+        part = paths[:chunk]
+        host = np.empty((len(part), geom.height, geom.width, 3), np.uint8)
+        read = host_ms(lambda: bmp.read_batch(part), reps=3) / len(part)
+        with concurrent.futures.ThreadPoolExecutor(
+                len(os.sched_getaffinity(0))) as pool:
+            pooled = host_ms(lambda: list(pool.map(
+                bmp.read_into, part, host)), reps=3) / len(part)
+        print(f"time host BMP input {len(part)} x {label}: read_batch "
+              f"(serial reads, threaded decode; the loop's) {read:.3f} "
+              f"ms/image, read_into an image a thread of "
+              f"{len(os.sched_getaffinity(0))} (the stream's) {pooled:.3f} "
+              f"ms/image ({card})", flush=True)
+        print(f"time stream {n} x {label} 4:2:0 BMP files -> JFIF files: "
+              f"encode_paths {stream_ms:.3f} ms/image ({1e3 / stream_ms:.1f} "
+              f"files/s; last run decode {last.decode_seconds:.3f} s, write "
+              f"{last.write_seconds:.3f} s of {last.seconds:.3f} s), "
+              f"synchronous loop read_batch -> encode_batch -> write "
+              f"{loop_ms:.3f} ms/image ({1e3 / loop_ms:.1f} files/s); H2D of "
+              f"a {chunk}-image chunk: pinned {pinned:.2f} GB/s, pageable "
+              f"{pageable:.2f} GB/s ({card})", flush=True)
+
+    paths = sets["1920x1080"][1]
+    trace = os.path.join(tmp, "stream_trace.json")
+    for _ in range(3):  # an empty trace is retried, as in busy_ms
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stream.encode_paths(paths, default, writing({}), device=cuda)
+        prof.export_chrome_trace(trace)
+        names, overlapping, kernels, overlap_us = trace_overlap(trace)
+        if names and kernels:
+            break
+    pageable_copies = [n for n in names if "Pinned" not in n]
+    check(names and not pageable_copies,
+          f"stream: host-to-device copies not from pinned memory: "
+          f"{sorted(set(pageable_copies))} ({len(names)} copies)")
+    check(overlapping > 0, f"stream: none of {len(names)} host-to-device "
+          f"copies overlapped any of {kernels} kernels")
+    print(f"stream profile, {len(paths)} x 1920x1080: {len(names)} "
+          f"host-to-device copies, all pinned ({sorted(set(names))}); "
+          f"{overlapping} overlap a kernel of another chunk, "
+          f"{overlap_us:.0f} us in all ({card})", flush=True)
     return counts
 
 
@@ -1136,6 +1405,8 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
              lambda: dct_ops.real_dct_fast_planes_zigzag(*planes)),
         ] + (interval_pairs(z, geom) + block_pairs_1080
              if label == "1920x1080" else []):
+            if label == "1920x1080":
+                KERNEL_CALLS[name] = kernel
             p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
             times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
             kernel_busy = busy_ms(kernel)
@@ -1213,10 +1484,64 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
     return times, busy, bounds, library, library_busy
 
 
+KERNEL_CALLS = {}  # timing name -> its 1080p kernel call (timing_phase)
+
+
+def parent_phase(parent: str, cuda, card) -> None:
+    """With --parent DIR, a checkout of an earlier commit: every kernel
+    whose source differs from DIR's is built from DIR too, and both builds
+    run timing_phase's 1080p 4:2:0 calls of that kernel (same operands):
+    their results must be equal, and their device-busy times are printed,
+    in turns (parent, this tree, this tree, parent). The parent's C entry
+    must take the same arguments."""
+    import filecmp
+
+    from jpeg_encoder_torch.kernels import _build
+    from jpeg_encoder_torch.kernels import dct as dct_kernel
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.kernels import pack as pack_kernel
+
+    parent_csrc = os.path.join(parent, "jpeg_encoder_torch", "csrc")
+    changed = [k for k in all_kernels()
+               if not filecmp.cmp(os.path.join(_build.CSRC, f"{k.lib}.cu"),
+                                  os.path.join(parent_csrc, f"{k.lib}.cu"),
+                                  shallow=False)]
+    print(f"parent {parent}: kernels whose source differs: "
+          f"{[k.name for k in changed]}", flush=True)
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
+        _build.build(sorted({k.lib for k in changed}), csrc=parent_csrc,
+                     build_dir=tmp)
+        for k in changed:
+            module, attr = next(
+                (m, a) for m in (dct_kernel, entropy_kernel, pack_kernel)
+                for a, v in vars(m).items() if v is k)
+            old = k.loaded_from(os.path.join(tmp, f"lib{k.lib}.so"))
+            for name, fn in KERNEL_CALLS.items():
+                if name != k.name and not name.startswith(k.name + " "):
+                    continue
+                results, busy = {}, []
+                for rec in (old, k, k, old):
+                    setattr(module, attr, rec)
+                    results[rec is k] = fn()
+                    busy.append(busy_ms(fn))
+                setattr(module, attr, k)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(
+                    *(r if isinstance(r, tuple) else (r,)
+                      for r in results.values())))
+                check(same, f"{name}: the parent's kernel and this tree's "
+                      "differ on the same operands")
+                mean = lambda a, b: None if None in (a, b) else (a + b) / 2
+                print(f"time {name} 1920x1080 4:2:0 vs parent: device-busy "
+                      f"parent {fmt(mean(busy[0], busy[3]))} ms, this tree "
+                      f"{fmt(mean(busy[1], busy[2]))} ms; results equal "
+                      f"({card})", flush=True)
+
+
 def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
     """Each kernel's bound on the inputs its timing uses at 1080p 4:2:0
     (every input byte read once, every output byte written once)."""
-    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch import pipeline, scan
     from jpeg_encoder_torch.ops import entropy as entropy_ops
 
     n = sum(p.numel() for p in planes) // 64
@@ -1225,6 +1550,9 @@ def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
     epi = entropy_ops.entries_per_interval(geom, 120)
     rows = -(-geom.num_scan_entries // epi)
     cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
+    slot_bits, slot_lens = entropy_ops.symbolize(
+        z, geom.h_factor * geom.v_factor, entries_per_interval=epi)
+    pack_row_bits = scan.assemble_operands(slot_bits, slot_lens, epi)[2]
     bounds = {
         "realdct": bound(plane_bytes, n * REALDCT_BLOCK_OPS, FP32_ISSUE_OPS),
         "fastdct": bound(plane_bytes, n * FAST_BLOCK_FLOPS,
@@ -1232,10 +1560,12 @@ def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
         "bindct": bound(plane_bytes, n * BINDCT_BLOCK_OPS, INT32_OPS),
         # z in, the two (2, 256) tables, one row of cap bytes and its count.
         "entropy": bound(z.numel() * 2 + 4096 + cap + 4),
-        # K5 at restart 120 (timing's "pack"): per-entry words and offsets
-        # in, one row of cap120 bytes per interval out.
-        "pack": bound(rows * epi * (entropy_ops.ENTRY_WORDS + 1) * 4
-                      + rows * cap120),
+        # K5 at restart 120 (timing's "pack"): 8 bytes of offset an entry
+        # and the live words in (a row's bit count over 32, rounded up: the
+        # words past an entry's bits are zero and need not be read), one
+        # row of cap120 bytes per interval out.
+        "pack": bound(rows * epi * 8 + int(((pack_row_bits + 31) // 32).sum())
+                      * 4 + rows * cap120),
         "realdct_blocks": bound(n_y * 64 * 5, n_y * REALDCT_BLOCK_OPS,
                                 FP32_ISSUE_OPS),
         "bindct_blocks": bound(n_y * 64 * 5, n_y * BINDCT_BLOCK_OPS,
@@ -1277,6 +1607,14 @@ def counted(path: str, drive, required) -> dict[str, int]:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--parent", metavar="DIR",
+        help="a checkout of an earlier commit: also time its builds of the "
+             "kernels whose sources differ, on the same operands")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -1337,9 +1675,18 @@ def main() -> int:
     path_counts.append(large_image_path(cuda))
     phase_s["large image"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
+        path_counts.append(stream_phase(cuda, images_1080, images_4k, card,
+                                        tmp))
+    phase_s["stream"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     times, busy, bounds, library, library_busy = timing_phase(
         cuda, images_1080, images_4k, card)
     phase_s["timing"] = time.perf_counter() - t0
+    if args.parent:
+        t0 = time.perf_counter()
+        parent_phase(args.parent, cuda, card)
+        phase_s["parent"] = time.perf_counter() - t0
     print(f"K2 fastdct 1920x1080 4:2:0 device-busy {fmt(busy['fastdct'])} ms "
           f"vs torch.matmul (its product alone) {fmt(library_busy['fastdct'])}"
           f" ms; mismatch rates: " + " | ".join(FAST_RATES) + f" ({card})",

@@ -161,6 +161,43 @@ def read_batch(
     return out
 
 
+def read_into(path: str | os.PathLike, out: np.ndarray) -> np.ndarray:
+    """Read and decode one BMP file into out, a C-contiguous (H, W, 3)
+    uint8 array of the file's dimensions (the stream engine's pinned
+    staging buffers), on the calling thread; the native decode releases the
+    interpreter lock, so several threads decode at once."""
+    with open(path, "rb") as f:
+        raw = np.frombuffer(f.read(), np.uint8)
+    lib = native.load()
+    if lib is None:
+        rgb = decode(raw)
+        w, h = rgb.shape[1], rgb.shape[0]
+    else:
+        w, h = ctypes.c_int32(), ctypes.c_int32()
+        off, bpp = ctypes.c_int64(), ctypes.c_int32()
+        rc = lib.jt_bmp_probe(
+            _u8ptr(raw), raw.size,
+            ctypes.byref(w), ctypes.byref(h), ctypes.byref(off),
+            ctypes.byref(bpp),
+        )
+        if rc != 0:
+            raise ValueError(f"{path}: {_NATIVE_ERRORS.get(rc, rc)}")
+        w, h = w.value, h.value
+    if (out.dtype != np.uint8 or out.shape != (h, w, 3)
+            or not out.flags.c_contiguous):
+        raise ValueError(
+            f"{path}: out must be a C-contiguous ({h}, {w}, 3) uint8 array, "
+            f"got {out.dtype} {out.shape}"
+        )
+    if lib is None:
+        out[...] = rgb
+        return out
+    rc = lib.jt_bmp_decode_rgb(_u8ptr(raw), raw.size, _u8ptr(out))
+    if rc != 0:
+        raise ValueError(f"{path}: {_NATIVE_ERRORS.get(rc, rc)}")
+    return out
+
+
 def encode(rgb: np.ndarray) -> bytes:
     """(H, W, 3) uint8 RGB -> 24-bit BMP file bytes."""
     if rgb.ndim != 3 or rgb.shape[2] != 3 or rgb.dtype != np.uint8:

@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _reports: dict[str, str] = {}  # source name -> nvcc's stderr (ptxas -v)
 
@@ -79,17 +80,22 @@ def _stale(name: str) -> bool:
     return any(os.path.getmtime(p) > built for p in deps)
 
 
-def build(which: list[str] | None = None) -> None:
-    """Compile csrc/<name>.cu into lib_path(name) for each name (all by
-    default), one nvcc process per source, all running at once."""
+def build(which: list[str] | None = None, csrc: str | None = None,
+          build_dir: str | None = None) -> None:
+    """Compile csrc/<name>.cu into build_dir/lib<name>.so for each name
+    (all by default), one nvcc process per source, all running at once.
+    Another csrc and build_dir build another checkout's sources (chip_smoke
+    --parent)."""
+    own = build_dir is None
+    csrc, build_dir = csrc or CSRC, build_dir or BUILD_DIR
     nvcc = nvcc_path()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir, exist_ok=True)
     jobs = []
     for name in which or names():
         # Per-process temporary name: concurrent builds must not interleave
         # writes into one file; os.replace installs the finished library.
-        tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+        tmp = os.path.join(build_dir, f"lib{name}.so.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(csrc, f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
@@ -98,8 +104,9 @@ def build(which: list[str] | None = None) -> None:
     for name, tmp, cmd, proc in jobs:
         _, stderr = proc.communicate()
         if proc.returncode == 0:
-            os.replace(tmp, lib_path(name))
-            _reports[name] = stderr
+            os.replace(tmp, os.path.join(build_dir, f"lib{name}.so"))
+            if own:
+                _reports[name] = stderr
             continue
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -169,6 +176,18 @@ class Kernel:
         fn.restype = ctypes.c_int
         return fn
 
+    def loaded_from(self, path: str) -> "Kernel":
+        """This kernel, counting from 0, with its entry point taken from
+        the library at path: another build of its source, whose C entry
+        must take the same arguments (chip_smoke --parent times a parent
+        commit's kernel with it)."""
+        other = dataclasses.replace(self, launches=0)
+        fn = getattr(ctypes.CDLL(path), self.symbol)
+        fn.argtypes = list(self.argtypes)
+        fn.restype = ctypes.c_int
+        other.__dict__["_fn"] = fn
+        return other
+
     def launch(self, *args) -> None:
         """Call the entry point (which returns the launch's cudaError_t)
         and count the launch; raise if it failed."""
@@ -177,4 +196,5 @@ class Kernel:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: cudaError_t {err}"
             )
-        self.launches += 1
+        with _count_lock:  # the stream engine launches from two threads
+            self.launches += 1

@@ -3,9 +3,17 @@ version.
 
 Replaces jpeg_encoder_tpu/kernels/pack_pallas.py::assemble_bitstream_pallas,
 vmapped over restart intervals as the JAX package's packer="pallas" tier
-runs it. On CUDA tensors the wrapper launches the hand-written kernel (one
-warp per entry) or raises; on CPU tensors it runs
-ops/entropy.assemble_bitstream, which is the kernel's spec.
+runs it. On CUDA tensors the wrapper launches the hand-written kernel (a
+warp per 32 output words, each written once: one kernel, no memset) or
+raises; on CPU tensors it runs ops/entropy.assemble_bitstream, which is the
+kernel's spec.
+
+The kernel needs what the plain version does not: within a row the offsets
+are non-decreasing and entry e's bits lie in [offsets[e], offsets[e + 1]),
+its words zero past its bit count. scan.assemble_operands gives exactly
+that (pack_level1's words, offsets an exclusive cumsum of the bit counts,
+0-bit entries sharing the next entry's offset). The wrapper does not check
+it on the device: that would cost a pass over the offsets and a sync.
 """
 
 from __future__ import annotations
@@ -28,8 +36,9 @@ def assemble_bitstream(
     entry_words: torch.Tensor, offsets: torch.Tensor, capacity_bytes: int
 ) -> torch.Tensor:
     """(B, E, EW) int32 per-entry words (u32 bits, pack_level1's) + (B, E)
-    int64 bit offsets within each row -> (B, capacity_bytes // 4) int32
-    words, as ops/entropy.assemble_bitstream.
+    int64 bit offsets within each row, non-decreasing as the module's
+    docstring says -> (B, capacity_bytes // 4) int32 words, as
+    ops/entropy.assemble_bitstream.
 
     Words at or past a row's capacity are dropped. The TPU kernel clamps
     such entries onto the buffer's tail instead (pack_pallas.py:118-120):

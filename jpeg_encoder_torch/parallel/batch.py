@@ -15,8 +15,10 @@ written out (pipeline.scan_entries on (B, H, W, 3)):
 encode_batch cuts the batch into chunks (chunk_size_images): an input-byte
 budget and an image cap (K4's 64-bit bit offsets are relative to a row, an
 image or a restart interval, so they bound neither). Each chunk is
-dispatch_chunk (device
-work, enqueued, nothing synchronised), fetch_chunk (one copy of the bit
+dispatch_chunk (upload_chunk, a synchronous pageable copy, then
+dispatch_uploaded: device work on the current stream, enqueued, nothing
+synchronised; parallel/stream.py uploads on its own and calls
+dispatch_uploaded), fetch_chunk (one copy of the bit
 counts, then one copy of every row up to the longest payload) and
 assemble_chunk (JFIF files on the host; a member whose payload overflowed
 the chunk's shared capacity is re-encoded alone through
@@ -96,10 +98,17 @@ def chunk_capacity_bytes(config: EncoderConfig, geom: FrameGeometry) -> int:
     )
 
 
-def _entries(images, config, geom, device) -> torch.Tensor:
-    """Upload a chunk and run the front half: its (B * E, 64) entries."""
-    rgb = torch.as_tensor(np.ascontiguousarray(images, dtype=np.uint8),
-                          device=device)
+def upload_chunk(images: np.ndarray, device: str | torch.device) -> torch.Tensor:
+    """(B, H, W, 3) uint8 host images -> the same on `device`, copied
+    synchronously from pageable memory (parallel/stream.py stages its
+    uploads in pinned memory on a copy stream instead)."""
+    return torch.as_tensor(np.ascontiguousarray(images, dtype=np.uint8),
+                           device=device)
+
+
+def front_entries(rgb: torch.Tensor, config, geom) -> torch.Tensor:
+    """The front half over an uploaded (B, H, W, 3) uint8 chunk: its
+    (B * E, 64) scan entries, on rgb's device."""
     z, _ = pipeline.scan_entries(
         rgb, geom, config.dct_algorithm, config.quality,
         fast_dct=config.fast_dct, bin_dct_descale=config.bin_dct_descale,
@@ -129,12 +138,25 @@ def dispatch_chunk(
     capacity: int,
     device: str | torch.device = "cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Upload one chunk and enqueue its encode: (payloads, bit lengths) as
-    device tensors, (B, capacity) and (B,), or (B, n_int, capacity) and
-    (B, n_int) with restart markers. Nothing is synchronised, so the caller
-    can overlap other work and fetch later (fetch_chunk)."""
-    z = _entries(images, config, geom, device)
-    return _encode_entries(z, config, geom, capacity)
+    """Upload one chunk and enqueue its encode: dispatch_uploaded over
+    upload_chunk's copy."""
+    return dispatch_uploaded(upload_chunk(images, device), config, geom,
+                             capacity)
+
+
+def dispatch_uploaded(
+    rgb: torch.Tensor,
+    config: EncoderConfig,
+    geom: FrameGeometry,
+    capacity: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Enqueue the encode of one uploaded (B, H, W, 3) uint8 chunk on rgb's
+    device (on the current stream): (payloads, bit lengths) as device
+    tensors, (B, capacity) and (B,), or (B, n_int, capacity) and (B,
+    n_int) with restart markers. Nothing is synchronised, so the caller can
+    overlap other work and fetch later (fetch_chunk)."""
+    return _encode_entries(front_entries(rgb, config, geom), config, geom,
+                           capacity)
 
 
 def fetch_chunk(
@@ -159,7 +181,9 @@ def assemble_chunk(
     specs_list: list | None = None,
 ) -> list[bytes]:
     """Host-side file assembly for one chunk's fetched results, with each
-    member's optimal tables (DHT) if specs_list is given.
+    member's optimal tables (DHT) if specs_list is given. images are the
+    chunk's (B, H, W, 3) uint8 images, on the host or as the uploaded
+    tensor: they are read only to retry a member.
 
     A member whose payload (or any interval's) overflowed `capacity` is
     re-encoded alone through pipeline.encode_array, from the next rung of
@@ -188,6 +212,8 @@ def assemble_chunk(
 
 
 def _retry(rgb, config, geom, capacity, device) -> bytes:
+    if isinstance(rgb, torch.Tensor):
+        rgb = rgb.cpu().numpy()
     restart = config.restart_interval
     if restart is None:
         rung = pipeline.next_capacity_bytes(geom, capacity)
@@ -230,11 +256,20 @@ def dispatch_optimized_stats(
     geom: FrameGeometry,
     device: str | torch.device = "cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Upload one optimize chunk and enqueue its statistics pass: (the
+    """Upload one optimize chunk and enqueue its statistics pass:
+    optimized_stats_uploaded over upload_chunk's copy."""
+    return optimized_stats_uploaded(upload_chunk(images, device), config,
+                                    geom)
+
+
+def optimized_stats_uploaded(
+    rgb: torch.Tensor, config: EncoderConfig, geom: FrameGeometry
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Enqueue the statistics pass of one uploaded optimize chunk: (the
     chunk's (B * E, 64) scan entries, which the encode pass reuses, and
-    (B, 4, 256) symbol counts), both on the device, unsynchronised. The
+    (B, 4, 256) symbol counts), both on rgb's device, unsynchronised. The
     framing is the encode pass's (restart_interval)."""
-    z = _entries(images, config, geom, device)
+    z = front_entries(rgb, config, geom)
     hists = entropy_ops.symbol_histograms(z, geom, config.restart_interval)
     return z, hists.reshape(-1, 4, 256)
 

@@ -27,7 +27,7 @@ from jpeg_encoder_torch.kernels import _build, dct, entropy, pack
 from jpeg_encoder_torch.ops import color, sample
 from jpeg_encoder_torch.ops import dct as dct_ops
 from jpeg_encoder_torch.ops import entropy as entropy_ops
-from jpeg_encoder_torch.parallel import batch
+from jpeg_encoder_torch.parallel import batch, stream
 from jpeg_encoder_torch.utils import corpus
 
 rgb = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
@@ -35,6 +35,14 @@ result = pipeline.encode_array(rgb, jpeg_encoder_torch.EncoderConfig(), device="
 assert result.file_bytes[:2] == b"\\xff\\xd8" and result.bit_length > 0
 files = batch.encode_batch(np.stack([rgb, rgb[::-1]]), device="cpu")
 assert files[0] == result.file_bytes and len(files) == 2
+import os, tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "in.bmp")
+    bmp.write(path, rgb)
+    got = {}
+    stream.encode_paths([path], jpeg_encoder_torch.EncoderConfig(),
+                        got.__setitem__, device="cpu")
+assert got[path] == result.file_bytes
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jpeg_encoder_tpu"))
 print("FORBIDDEN_MODULES", leaked)

@@ -15,7 +15,9 @@ K2 (--fast-dct), which is held to max |diff| 1 at mismatch rates below
 1e-3 against its plain version and 5e-4 against the exact K1: K4 also over
 restart intervals, with live_entries and with one-symbol optimal tables,
 over a batch of images (per-image rows, intervals and tables), and K5 over
-one row and many; the per-block tier (K6a/b, K6c) also against K1 and K3
+one row and many and on operands at the edges of its walk (runs of 0-bit
+entries, 56-word entries, a row past bit 2^31, capacities that cut an
+entry), with one device operation a call; the per-block tier (K6a/b, K6c) also against K1 and K3
 on the same blocks; then restart, optimized and batch encodes on the card
 against the CPU path. The unmarked tests run everywhere and pin the
 build's behaviour.
@@ -38,6 +40,8 @@ from jpeg_encoder_torch.ops import sample
 from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_torch.parallel import batch
 from jpeg_encoder_torch.utils import corpus
+from test_torch_pack import fit_capacity
+from test_torch_pack import pack_operands
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -425,6 +429,55 @@ def test_pack_kernel_matches_plain(cuda, ratio, interval):
         torch.cuda.synchronize()
         assert pack_kernel.PACK.launches == before + 1
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case",
+                         ["zero-runs", "max-words", "tiny-entries", "past-2^31"])
+def test_pack_kernel_adversarial_operands(cuda, case):
+    """K5 on operands at the edges of its walk (test_torch_pack.py's
+    pack_operands): long runs of 0-bit entries (leading, scattered, a dead
+    tail), entries of up to 56 words, many entries a span; at a fitting
+    capacity, at one that is not a multiple of 16 bytes and cuts an entry
+    mid-word, and at 4 bytes. "past-2^31": a row whose offsets cross bit
+    2^31, at a capacity that holds it (2 rows of 268 MB)."""
+    words, offsets, ends = pack_operands(case)
+    fit = fit_capacity(ends)
+    caps = [fit] if case == "past-2^31" else [
+        fit, 4 * (int(ends.min()) // 64 // 4 * 4 + 3), 4]
+    dev_words, dev_offsets = words.to(cuda), offsets.to(cuda)
+    for cap in caps:
+        want = pack_kernel.assemble_bitstream(words, offsets, cap)
+        before = pack_kernel.PACK.launches
+        got = pack_kernel.assemble_bitstream(dev_words, dev_offsets, cap)
+        torch.cuda.synchronize()
+        assert pack_kernel.PACK.launches == before + 1
+        assert torch.equal(got.cpu(), want), cap
+
+
+@pytest.mark.cuda
+def test_pack_kernel_call_is_one_device_operation(cuda):
+    """One K5 call runs one kernel and nothing else: every output word is
+    written by the kernel, so there is no memset."""
+    from torch.profiler import ProfilerActivity, profile
+
+    words, offsets, ends = pack_operands("zero-runs")
+    words, offsets = words.to(cuda), offsets.to(cuda)
+    cap = fit_capacity(ends)
+    pack_kernel.assemble_bitstream(words, offsets, cap)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then returns an empty trace
+        before = pack_kernel.PACK.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pack_kernel.assemble_bitstream(words, offsets, cap)
+            torch.cuda.synchronize()
+        assert pack_kernel.PACK.launches == before + 1
+        ops = [(e.key, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    assert len(ops) == 1 and ops[0][1] == 1, ops
+    assert "assemble_kernel" in ops[0][0], ops
 
 
 @pytest.mark.cuda

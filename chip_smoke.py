@@ -6,8 +6,9 @@ Builds the port's CUDA kernels from jpeg_encoder_torch/csrc (one nvcc per
 source, all at once), holds each against its plain PyTorch version (K1
 RealDCT, K4 entropy, K3 binDCT, K5 bitstream assembly and the per-block
 tier K6a/b and K6c exactly, K4 also over restart intervals with
-live_entries and over a batch of images with per-image rows, intervals and
-tables, K6 also against K1 and K3 on the same blocks; K2 --fast-dct to max
+live_entries, over a batch of images with per-image rows, intervals and
+tables, and over one image's MCU bands with one init_dc vector a row, K6
+also against K1 and K3 on the same blocks; K2 --fast-dct to max
 |diff| 1 at a mismatch rate below 1e-3, and 5e-4 against K1, at quality
 None and 90, and at quality 100 with every mismatch a float32 rounding
 tie), drives the single-image paths
@@ -31,10 +32,22 @@ K3), a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
 (jpeg_encoder_torch.parallel.stream.encode_paths: 64 1080p and 15 4K BMP
 files to JFIF files, every file against encode_batch's, 8 also under
 restart and optimize; under the profiler every host-to-device copy must be
-pinned and one at least must overlap a kernel), each path between a reset
-and a read of the launch counts, and times
-the kernels (beside their bounds), the batch against a loop of single
-encodes, and the end-to-end encodes. It also prints each kernel's
+pinned and one at least must overlap a kernel), the band path
+(jpeg_encoder_torch.parallel.tiled.encode_tiled: 1080p at 2, 3, 4 and 8
+bands, 4K at 4 and 8, 7680x4320 at 8, every ratio, binDCT, --fast-dct,
+restart 120 and 7, optimize, a one-band retry, the quirk fallback; every
+file against encode_array on the card, three against the CPU path) and the
+CLI (python -m jpeg_encoder_torch.cli in processes of its own, which
+report their launches: single images, --tile-bands, a glob, --dataset of
+271 1080p and 4K files in one and in two gloo processes and resumed; every
+file against encode_array on the card; the error probes' exit codes), each
+path between a reset and a read of the launch counts, and times the
+kernels (beside their bounds), the batch against a loop of single
+encodes, and the end-to-end encodes, encode_tiled against encode_array
+(host ms with each stage alone, device-busy ms and the top device
+operations), K4 with one init_dc a row against the (3,) form, and each
+dataset process's start-up apart from its steady files/s, in one process
+and in two. It also prints each kernel's
 registers, spills and shared memory as ptxas reports them, the
 torch.matmul yardstick of K2 by events and device-busy time beside K2's
 busy time and mismatch rates, the
@@ -946,6 +959,121 @@ def k4_batch_phase(cuda, images_1080) -> float:
     return float(worst)
 
 
+def band_operands(cuda, rgb: np.ndarray, config, bands: int):
+    """rgb as `bands` MCU-row bands on the card, through the band path's
+    own front (parallel/tiled.band_front): (the stack's entries, its
+    (bands, 3) chained init_dc, the stack geometry, the image's live
+    entries, entries a band, the per-band capacity)."""
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.parallel import tiled
+
+    geom = config.geometry(rgb.shape[1], rgb.shape[0])
+    band_rows = tiled._band_rows(geom, bands)
+    z, init = tiled.band_front(rgb, config, geom, bands, band_rows, cuda)
+    band_geom = tiled._band_geometry(geom, band_rows * 8 * geom.v_factor)
+    stack_geom = tiled._band_geometry(geom, bands * band_geom.height)
+    return (z, init, stack_geom, geom.num_scan_entries,
+            tiled._band_entries(geom, band_rows),
+            pipeline.default_capacity_bytes(band_geom))
+
+
+def host_split(cuda, rgb: np.ndarray, config, bands: int | None):
+    """Host ms of the unbroken encode's stages, each timed alone: the front
+    (upload and scan entries; with bands, the band front with its stack and
+    final_dc; ends in a sync), K4 with the fetch of its payload (the band
+    rows), the host splice of the bands, the JFIF assembly. bands None
+    splits encode_array, which has no splice."""
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.io import jfif
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.parallel import batch
+    from jpeg_encoder_torch.utils.bits import splice_bitstreams
+
+    geom = config.geometry(rgb.shape[1], rgb.shape[0])
+    if bands is None:
+        def front():
+            out = pipeline.scan_entries(
+                torch.tensor(rgb, device=cuda), geom, config.dct_algorithm,
+                config.quality)[0]
+            torch.cuda.synchronize()
+            return out
+
+        z, cap = front(), pipeline.default_capacity_bytes(geom)
+
+        def code():
+            payload, bits = entropy_kernel.encode_entries(z, geom, cap)
+            bits = int(bits)
+            return payload[: (bits + 7) // 8].cpu().numpy().tobytes()
+
+        split = {"front": host_ms(front), "K4 + fetch": host_ms(code)}
+        payload = code()
+    else:
+        def front():
+            out = band_operands(cuda, rgb, config, bands)
+            torch.cuda.synchronize()
+            return out
+
+        z, init, stack_geom, live, epi, cap = front()
+
+        def code():
+            return batch.fetch_chunk(*entropy_kernel.encode_entries(
+                z, stack_geom, cap, init, live_entries=live,
+                entries_per_interval=epi))
+
+        payloads, bits = code()
+        chunks = [(payloads[i], int(b)) for i, b in enumerate(bits)]
+        split = {"front": host_ms(front), "K4 + fetch": host_ms(code),
+                 "splice": host_ms(lambda: splice_bitstreams(chunks))}
+        payload = splice_bitstreams(chunks)[0]
+    split["JFIF"] = host_ms(lambda: jfif.assemble(geom, payload,
+                                                  quality=config.quality))
+    return split
+
+
+def k4_band_phase(cuda, images_1080) -> float:
+    """K4 with one init_dc vector a row (the band path's stack) vs its plain
+    version run on the card's tensors: the four 1080p corpus images at
+    4:2:0 as 4, 8 and 16 MCU-row bands (68 MCU rows: 17-row bands; 9-row
+    bands, the last with 5 live rows; 5-row bands, band 13 with 3 live rows
+    and two dead bands), at the per-band capacity and at 8 bytes a row,
+    with Annex-K tables and with the stack's optimal tables. Max |error|."""
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.ops import entropy as entropy_ops
+
+    config = EncoderConfig()
+    worst = 0
+    for bands in (4, 8, 16):
+        for name, rgb in images_1080.items():
+            z, init, stack_geom, live, epi, cap = band_operands(
+                cuda, rgb, config, bands)
+            hist = entropy_ops.symbol_histograms(
+                z, stack_geom, epi // stack_geom.blocks_per_mcu, init,
+                live_entries=live)
+            luts = pipeline.optimal_specs_and_luts(hist.cpu().numpy(),
+                                                   cuda)[1]
+            for tables, capacity in ((None, cap), (luts, cap), (None, 8)):
+                args = dict(init_dc=init, luts=tables, live_entries=live,
+                            entries_per_interval=epi)
+                got, bits = entropy_kernel.encode_entries(
+                    z, stack_geom, capacity, **args)
+                want, want_bits = entropy_ops.encode_entries(
+                    z, stack_geom, capacity, **args)
+                torch.cuda.synchronize()
+                err = max(max_err(bits, want_bits.cpu()),
+                          max_err(got, want.cpu()))
+                worst = max(worst, err)
+                check(err == 0, f"K4 bands {bands} {name} tables "
+                      f"{'optimal' if tables else 'Annex K'} capacity "
+                      f"{capacity}: max |err| {err}")
+        print(f"K4 per-row init_dc, 4 x 1080p 4:2:0 as {bands} bands "
+              f"({bits.numel()} rows, live {live} of {z.shape[0]} entries): "
+              "kernel == plain (Annex K, optimal tables, 8 B rows)",
+              flush=True)
+    return float(worst)
+
+
 def variants(images: list[np.ndarray], count: int) -> np.ndarray:
     """count distinct images from a few: rolled, flipped, channel-swapped."""
     out = []
@@ -1245,6 +1373,389 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
           f"host-to-device copies, all pinned ({sorted(set(names))}); "
           f"{overlapping} overlap a kernel of another chunk, "
           f"{overlap_us:.0f} us in all ({card})", flush=True)
+    return counts
+
+
+def tiled_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
+    """The band path, driven (parallel.tiled.encode_tiled on the card): 1080p
+    4:2:0 corpus frames at 2, 3, 4 and 8 bands, 4K at 4 and 8 (135 MCU
+    rows), a 7680x4320 corpus frame at 8; at 4 bands 4:2:2, 4:4:4, binDCT
+    with descale, --fast-dct, restart 120 and 7 (21-row bands: 17 rows of
+    120 MCUs are not whole intervals of 7), optimize alone and with restart
+    120, a gradient whose band 1 is noise at 0.04 B/px (only band 1 may
+    retry), and 1921x1089, the quirk geometry (falls back, with its
+    warning). Every file == encode_array on the card; three also == the
+    CPU path. Then encode_tiled at 4 and 8 bands against encode_array
+    (host ms, device-busy ms) at 1080p and 4K, and K4's busy time with one
+    init_dc a row against the (3,) form on the same entries. Returns the
+    path's launch counts."""
+    import dataclasses
+    import warnings
+
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+    from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.parallel import tiled
+    from jpeg_encoder_torch.utils import corpus
+
+    hd, uhd = list(images_1080.values()), list(images_4k.values())
+    default = EncoderConfig()
+    optimize = EncoderConfig(optimize_huffman=True)
+    retry_rgb = np.broadcast_to(
+        np.linspace(0, 255, 1920)[None, :, None], (1080, 1920, 3)
+    ).astype(np.uint8).copy()
+    retry_rgb[272:544] = np.random.default_rng(8).integers(
+        0, 256, (272, 1920, 3), np.uint8)
+    quirk = np.random.default_rng(9).integers(0, 256, (1089, 1921, 3),
+                                              np.uint8)
+    check(tiled._aligned_band_rows(default.geometry(1920, 1080), 4, 7) == 21,
+          "restart 7 at 1080p in 4 bands: the aligned split is not 21 rows")
+    # (label, rgb, config, bands, also against the CPU path)
+    cases = [(f"1920x1080 4:2:0 {b} bands", hd[i], default, b, b == 4)
+             for i, b in enumerate((2, 3, 4, 8))]
+    cases += [(f"3840x2160 4:2:0 {b} bands", uhd[i], default, b, False)
+              for i, b in enumerate((4, 8))]
+    cases += [
+        ("7680x4320 4:2:0 8 bands", corpus.landscape(4320, 7680), default, 8,
+         False),
+        ("1920x1080 4:2:2 4 bands", hd[0],
+         EncoderConfig(subsampling_ratio=(4, 2, 2)), 4, False),
+        ("1920x1080 4:4:4 4 bands", hd[1],
+         EncoderConfig(subsampling_ratio=(4, 4, 4)), 4, False),
+        ("1920x1080 bin-dct descale 4 bands", hd[2],
+         EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT,
+                       bin_dct_descale=True), 4, False),
+        ("1920x1080 fast-dct 4 bands", hd[3], EncoderConfig(fast_dct=True), 4,
+         False),
+        ("1920x1080 restart 120 4 bands", hd[0],
+         EncoderConfig(restart_interval=120), 4, False),
+        ("1920x1080 restart 7 4 bands", hd[1],
+         EncoderConfig(restart_interval=7), 4, True),
+        ("1920x1080 optimize 4 bands", hd[2], optimize, 4, False),
+        ("1920x1080 optimize restart 120 4 bands", hd[3],
+         dataclasses.replace(optimize, restart_interval=120), 4, True),
+        ("1920x1080 retry (noise band 1, 0.04 B/px) 4 bands", retry_rgb,
+         EncoderConfig(capacity_bytes_per_pixel=0.04), 4, False),
+        ("1921x1089 4:2:0 (quirk geometry) 4 bands", quirk, default, 4,
+         False),
+    ]
+    retried, results, warned = [], [], []
+    retry = tiled._retry_band
+
+    def spy(z, geom, band_rows, idx, *args):
+        retried.append(idx)
+        return retry(z, geom, band_rows, idx, *args)
+
+    def drive():
+        for label, rgb, config, bands, _ in cases:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                results.append(tiled.encode_tiled(rgb, config, bands,
+                                                  device=cuda))
+            warned.extend(label for w in caught
+                          if issubclass(w.category, RuntimeWarning))
+
+    tiled._retry_band = spy
+    try:
+        counts = counted("tiled", drive, BATCH_KERNELS)
+    finally:
+        tiled._retry_band = retry
+    check(retried == [1], f"the retry case retried bands {retried}, not [1]")
+    check(warned == [cases[-1][0]], f"RuntimeWarnings from {warned}")
+    for (label, rgb, config, bands, cpu), got in zip(cases, results):
+        want = pipeline.encode_array(rgb, config, device=cuda)
+        check(got.file_bytes == want.file_bytes,
+              f"tiled {label}: != encode_array on the card")
+        check(got.bit_length == want.bit_length,
+              f"tiled {label}: bit length != encode_array's")
+        note = ""
+        if cpu:
+            cpu_file = tiled.encode_tiled(rgb, config, bands, device="cpu")
+            check(got.file_bytes == cpu_file.file_bytes,
+                  f"tiled {label}: card != CPU path")
+            note = " == CPU path"
+        print(f"tiled {label}: {len(got.file_bytes)} B == encode_array on "
+              f"the card{note}", flush=True)
+    print("tiled retry: only band 1 re-coded; quirk geometry: one-piece "
+          "encode with its RuntimeWarning", flush=True)
+
+    for label, rgb in (("1920x1080", hd[0]), ("3840x2160", uhd[0])):
+        parts, ops = [], []
+        for bands in (None, 4, 8):
+            if bands is None:
+                name = "encode_array"
+                run = lambda: pipeline.encode_array(rgb, default, device=cuda)
+            else:
+                name = f"{bands} bands"
+                run = lambda: tiled.encode_tiled(rgb, default, bands,
+                                                 device=cuda)
+            split = host_split(cuda, rgb, default, bands)
+            parts.append(
+                f"{name} host {host_ms(run):.3f} ms (alone: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in split.items())
+                + f"), busy {fmt(busy_ms(run, reps=5))} ms")
+            ops.append(f"{name}: " + ", ".join(
+                f"{op} {ms:.4f}" for op, ms in top_device_ops(run)))
+        print(f"time tiled {label} 4:2:0: " + "; ".join(parts)
+              + f" ({card})", flush=True)
+        print(f"tiled {label} 4:2:0 top device ops, ms a call: "
+              + "; ".join(ops) + f" ({card})", flush=True)
+
+    z, init, stack_geom, live, epi, cap = band_operands(cuda, hd[0], default,
+                                                        4)
+    zeros = torch.zeros(3, dtype=torch.int32, device=cuda)
+    per_row = lambda: entropy_kernel.encode_entries(
+        z, stack_geom, cap, init, live_entries=live, entries_per_interval=epi)
+    one_row = lambda: entropy_kernel.encode_entries(
+        z, stack_geom, 4 * cap, zeros, live_entries=live)
+    for _ in range(3):  # an empty trace is retried, as in busy_ms
+        ops = device_ops(per_row)
+        count = sum(c for _, c, _ in ops)
+        if count:
+            break
+    check(0 < count <= 2, "one K4 call with per-row init_dc ran other than "
+          f"the memset and one kernel: {ops}")
+    row_busy, one_busy = busy_ms(per_row), busy_ms(one_row)
+    print(f"time K4 1920x1080 4:2:0 as 4 bands ({z.shape[0]} entries): "
+          f"per-row init_dc (4 rows of {cap} B) device-busy {fmt(row_busy)} "
+          f"ms, events {cuda_ms(per_row):.4f} ms; (3,) init_dc (one row of "
+          f"{4 * cap} B) device-busy {fmt(one_busy)} ms, events "
+          f"{cuda_ms(one_row):.4f} ms; device operations a per-row call "
+          f"{count:g} ({card})", flush=True)
+    return counts
+
+
+CLI_LAUNCHER = """
+import time
+started = time.time()
+import json, runpy, sys
+import torch
+torch_imported = time.time()
+from jpeg_encoder_torch.kernels import dct, entropy, pack
+imported = time.time()
+try:
+    runpy.run_module("jpeg_encoder_torch.cli", run_name="__main__")
+finally:
+    kernels = (dct.REALDCT, entropy.ENTROPY, dct.BINDCT, dct.FASTDCT,
+               pack.PACK, dct.REALDCT_BLOCKS, dct.BINDCT_BLOCKS)
+    print("LAUNCHES " + json.dumps({k.name: k.launches for k in kernels}),
+          file=sys.stderr)
+    print("TIMES " + json.dumps({"started": started, "torch": torch_imported,
+                                 "imported": imported}), file=sys.stderr)
+"""
+
+
+def run_cli(runs: list[list[str]], launches: dict | None = None,
+            counting: bool = True) -> list[tuple[int, str, str, float]]:
+    """Run the CLI once per argument list, all at once, in processes of
+    their own (the module run as __main__, as `python -m` runs it; with
+    counting, through CLI_LAUNCHER, which reports the process's kernel
+    launches, added into `launches`, and the wall-clock times at which its
+    interpreter started and had imported torch and the kernel wrappers).
+    -> [(exit code, stdout, stderr, wall-clock time of the Popen)]."""
+    head = ([sys.executable, "-c", CLI_LAUNCHER] if counting
+            else [sys.executable, "-m", "jpeg_encoder_torch.cli"])
+    procs, popened = [], []
+    for args in runs:
+        popened.append(time.time())
+        procs.append(subprocess.Popen(head + args, cwd=REPO,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    out = []
+    try:
+        for p, t in zip(procs, popened):
+            stdout, stderr = p.communicate(timeout=300)
+            out.append((p.returncode, stdout, stderr, t))
+    finally:
+        for p in procs:
+            p.kill()
+    for _, _, stderr, _ in out:
+        for line in stderr.splitlines():
+            if line.startswith("LAUNCHES ") and launches is not None:
+                for name, n in json.loads(line[9:]).items():
+                    launches[name] = launches.get(name, 0) + n
+    return out
+
+
+def cli_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
+    """The CLI, driven in processes of its own on 8 1080p corpus BMP files:
+    one image with the default flags, one with -s 4:4:4 -d bin-dct, one with
+    --tile-bands --devices 4, a glob of the 8 (all four at once); then on
+    a folder of 256 1080p (64 distinct) and 15 4K corpus frames, 4:2:0,
+    --dataset in one process; in two gloo processes on the one card; again
+    with every file skipped on resume. Every file == encode_array's on the
+    card. Then the error probes' exit codes (non-.bmp, a bad ratio,
+    --tile-bands with a glob: 2). Returns the launches the CLI processes
+    reported. Prints, for each dataset process, its start-up (from the
+    Popen to the interpreter's start, to its imports, to its first file
+    written) apart from its steady rate (files and megapixels a second over
+    the files written after the first quarter, by the files' modification
+    times, which the kernel keeps to a few milliseconds)."""
+    import socket
+
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+    from jpeg_encoder_torch.io import bmp
+
+    src, out = os.path.join(tmp, "src"), os.path.join(tmp, "out")
+    data = os.path.join(tmp, "data")
+    os.makedirs(src)
+    os.makedirs(data)
+    images = variants(list(images_1080.values()), 8)
+    paths = [os.path.join(src, f"frame{i}.bmp") for i in range(len(images))]
+    for path, rgb in zip(paths, images):
+        bmp.write(path, rgb)
+    # The dataset: 256 1080p files (64 distinct frames, each file written
+    # once and linked three more times, to bound the disk) and 15 4K.
+    data_images = {}
+    for label, frames, links in (
+            ("1920x1080", variants(list(images_1080.values()), 64), 4),
+            ("3840x2160", variants(list(images_4k.values()), 15), 1)):
+        for i, rgb in enumerate(frames):
+            first = os.path.join(data, f"{label}_{i:03d}.bmp")
+            bmp.write(first, rgb)
+            for k in range(links):
+                j = i + k * len(frames)
+                data_images[f"{label}_{j:03d}"] = rgb
+                if k:
+                    os.link(first, os.path.join(data, f"{label}_{j:03d}.bmp"))
+    names = sorted(data_images)
+    default = EncoderConfig()
+    glob = os.path.join(src, "*.bmp")
+    port = lambda: socket.create_server(("localhost", 0))
+
+    def dataset(dst, count):
+        with port() as s:
+            address = f"localhost:{s.getsockname()[1]}"
+        extra = (lambda i: ["--coordinator", address, "--num-processes",
+                            str(count), "--process-id", str(i)])
+        return [["--dataset", data, "-o", dst, "--timing"]
+                + (extra(i) if count > 1 else []) for i in range(count)]
+
+    stages = [
+        ("single", [["-i", paths[0], "-o", os.path.join(out, "single.jpeg")],
+                    ["-i", paths[1], "-o", os.path.join(out, "b444.jpeg"),
+                     "-s", "4:4:4", "-d", "bin-dct"],
+                    ["-i", paths[2], "-o", os.path.join(out, "tiled.jpeg"),
+                     "--tile-bands", "--devices", "4"],
+                    ["-i", glob, "-o", os.path.join(out, "glob"),
+                     "--timing"]]),
+        ("dataset 1", dataset(os.path.join(out, "ds1"), 1)),
+        ("dataset 2", dataset(os.path.join(out, "ds2"), 2)),
+        ("dataset 2 resume", dataset(os.path.join(out, "ds2"), 2)),
+    ]
+    os.makedirs(out)
+    results = {}
+
+    def drive():
+        launches = {}
+        for name, runs in stages:
+            results[name] = run_cli(runs, launches)
+        return launches
+
+    counts = counted("cli", drive, ("realdct", "entropy", "bindct"))
+    for name, runs in results.items():
+        for args, (code, stdout, stderr, _) in zip(
+                dict(stages)[name], runs):
+            check(code == 0, f"cli {name} {args}: exit {code}\n{stderr}")
+
+    def want(rgb, config=default):
+        return pipeline.encode_array(rgb, config, device=cuda).file_bytes
+
+    def read(*parts):
+        with open(os.path.join(out, *parts), "rb") as f:
+            return f.read()
+
+    check(read("single.jpeg") == want(images[0]),
+          "cli single image != encode_array")
+    check(read("b444.jpeg") == want(images[1], EncoderConfig(
+        subsampling_ratio=(4, 4, 4), dct_algorithm=DctAlgorithm.BIN_DCT)),
+        "cli -s 4:4:4 -d bin-dct != encode_array")
+    check(read("tiled.jpeg") == want(images[2]),
+          "cli --tile-bands != encode_array")
+    for i, rgb in enumerate(images):
+        check(read("glob", f"frame{i}.jpeg") == want(rgb),
+              f"cli glob frame{i} != encode_array")
+    for name in names:
+        w = want(data_images[name])
+        for folder in ("ds1", "ds2"):
+            check(read(folder, f"{name}.jpeg") == w,
+                  f"cli --dataset {folder} {name} != encode_array")
+    lines = {name: [json.loads(o.strip().splitlines()[-1])
+                    for _, o, _, _ in r]
+             for name, r in results.items() if name.startswith("dataset")}
+    shares = [len(names[r::2]) for r in range(2)]
+    check([(l["encoded"], l["skipped"]) for l in lines["dataset 2"]]
+          == [(n, 0) for n in shares] and all(
+              l["summary"]["encoded"] == len(names)
+              for l in lines["dataset 2"]),
+          f"two-process dataset: {lines['dataset 2']}")
+    check([(l["encoded"], l["skipped"]) for l in lines["dataset 2 resume"]]
+          == [(0, n) for n in shares], f"resume: {lines['dataset 2 resume']}")
+    probes = run_cli([["-i", os.path.join(src, "x.png")],
+                      ["-i", paths[0], "-s", "4:1:1"],
+                      ["-i", glob, "--tile-bands"]], counting=False)
+    check([code for code, _, _, _ in probes] == [2, 2, 2],
+          f"cli error probes exit {[code for code, _, _, _ in probes]}, "
+          "not [2, 2, 2]")
+    print(f"cli: single image, -s 4:4:4 -d bin-dct, --tile-bands --devices "
+          f"4, a glob of 8, --dataset of {len(names)} files in one and in two "
+          "gloo processes: every file == encode_array on the card; the "
+          f"resumed run skipped all {len(names)}; error probes exit 2",
+          flush=True)
+
+    def process_times(stage, folder, count):
+        """Per process of a dataset run: seconds from its Popen to its
+        interpreter's start, its import of torch, of the kernel wrappers
+        and its first file written; (modification time, pixels) of each of
+        its files, in the order written; the CLI's own seconds."""
+        rows = []
+        for rank, (_, stdout, stderr, popened) in enumerate(results[stage]):
+            t = json.loads(next(line[6:] for line in stderr.splitlines()
+                                if line.startswith("TIMES ")))
+            written = sorted(
+                (os.stat(os.path.join(out, folder, f"{n}.jpeg")).st_mtime,
+                 data_images[n].shape[0] * data_images[n].shape[1])
+                for n in names[rank::count])
+            rows.append(dict(
+                interpreter=t["started"] - popened,
+                torch=t["torch"] - popened, imports=t["imported"] - popened,
+                first=written[0][0] - popened, written=written,
+                cli_seconds=json.loads(stdout.strip().splitlines()[-1])
+                ["seconds"]))
+        return rows
+
+    def steady(rows):
+        """Files and megapixels a second over the files written after the
+        first quarter (the loader runs up to two chunks ahead of the first
+        file written, so the first quarter is the pipeline filling)."""
+        written = sorted(w for r in rows for w in r["written"])
+        k = len(written) // 4
+        span = written[-1][0] - written[k][0]
+        files = len(written) - 1 - k
+        mp = sum(px for _, px in written[k + 1:]) / 1e6
+        return (f"{files / span:.1f} files/s, {mp / span:.1f} MP/s over the "
+                f"last {files} files, {span:.3f} s")
+
+    n_hd = sum(n.startswith("1920") for n in names)
+    parts = []
+    for stage, folder, count in (("dataset 1", "ds1", 1),
+                                 ("dataset 2", "ds2", 2)):
+        rows = process_times(stage, folder, count)
+        for rank, r in enumerate(rows):
+            parts.append(
+                f"rank {rank} of {count}: Popen -> interpreter "
+                f"{r['interpreter']:.3f} s -> torch imported "
+                f"{r['torch']:.3f} s -> kernel wrappers imported "
+                f"{r['imports']:.3f} s -> first file written "
+                f"{r['first']:.3f} s; {len(r['written'])} files, steady "
+                f"{steady([r])}; the CLI's seconds (rendezvous to summary) "
+                f"{r['cli_seconds']:.3f}")
+        if count > 1:
+            parts.append(f"{count} processes together steady {steady(rows)}")
+    print(f"time cli --dataset {len(names)} BMP files ({n_hd} x 1920x1080, "
+          f"{len(names) - n_hd} x 3840x2160, 4:2:0): " + "; ".join(parts)
+          + f" ({card})", flush=True)
     return counts
 
 
@@ -1594,12 +2105,14 @@ BLOCK_KERNELS = ("realdct_blocks", "bindct_blocks")
 
 def counted(path: str, drive, required) -> dict[str, int]:
     """Set every launch count to 0, drive one path, read the counts; fail
-    unless every kernel in `required` launched."""
+    unless every kernel in `required` launched. A drive that runs the path
+    in processes of its own returns the launches they reported (run_cli),
+    which are added in."""
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
-    drive()
-    counts = {k.name: k.launches for k in kernels}
+    children = drive() or {}
+    counts = {k.name: k.launches + children.get(k.name, 0) for k in kernels}
     check(all(counts[name] for name in required),
           f"a kernel of the {path} path never ran: {counts}")
     print(f"{path} launches: {counts}", flush=True)
@@ -1657,7 +2170,8 @@ def main() -> int:
     errors["fastdct"] = k2_phase(cuda, rng)
     errors["entropy"] = max(k4_phase(cuda, images_1080),
                             k4_interval_phase(cuda, images_1080),
-                            k4_batch_phase(cuda, images_1080))
+                            k4_batch_phase(cuda, images_1080),
+                            k4_band_phase(cuda, images_1080))
     errors["pack"] = k5_phase(cuda, images_1080)
     errors.update(k6_phase(cuda, rng))
     phase_s = {}
@@ -1679,6 +2193,14 @@ def main() -> int:
         path_counts.append(stream_phase(cuda, images_1080, images_4k, card,
                                         tmp))
     phase_s["stream"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_counts.append(tiled_phase(cuda, images_1080, images_4k, card))
+    phase_s["tiled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
+        path_counts.append(cli_phase(cuda, images_1080, images_4k, card,
+                                     tmp))
+    phase_s["cli"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     times, busy, bounds, library, library_busy = timing_phase(
         cuda, images_1080, images_4k, card)

@@ -17,8 +17,12 @@
 // batch (the TPU kernel vmapped over images) holds B images of
 // entries_per_image (E) entries each; the intervals restart at every
 // image, so local entry l of image i lies in row i * n_int + l / epi, with
-// n_int = ceil(E / epi). A row's DC predictors start at init_dc (0 for a
-// restart-framed scan or a batch), interval_bits[row] is its true length,
+// n_int = ceil(E / epi). A row's DC predictors start at init_dc + row *
+// init_stride: one vector for the unbroken scan, zeros for a restart-framed
+// scan or a batch (stride 0), or one vector a row (stride 3: one image's
+// MCU bands stacked as rows, each seeded with the final DCs of the band
+// before it, so that the rows splice into the unbroken scan).
+// interval_bits[row] is a row's true length,
 // and an overflowing row drops its excess words and never spills into the
 // next. Entries at an image's index >= live_entries emit nothing (a fully
 // dead row reports 0). The Huffman tables of image i are dc_lut and ac_lut
@@ -207,6 +211,7 @@ __device__ __forceinline__ long long look_back(
 __global__ void __launch_bounds__(kThreads)
 entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
                int live, int hv, const int* __restrict__ init_dc,
+               int init_stride,
                const int* __restrict__ dc_lut, const int* __restrict__ ac_lut,
                int lut_stride, int tiles_per_image,
                long long* __restrict__ interval_bits,
@@ -263,11 +268,12 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
   // One thread an entry: its row (index, and whether the entry starts or
   // ends it) and its DC difference along its component's predictor chain:
   // the previous entry of the component lies at a static distance, and a
-  // chain's first entry in its row takes init_dc.
+  // chain's first entry in its row takes the row's init_dc vector.
   if (threadIdx.x < n) {
     const int j = threadIdx.x, local = first_local + j;
     const int row = local / epi, row_first = row * epi;
-    row_s[j] = (image * n_int + row) << 2 |
+    const int global_row = image * n_int + row;
+    row_s[j] = global_row << 2 |
                (local + 1 == min(row_first + epi, per_image)) << 1 |
                (local == row_first);
     if (j < n_live) {
@@ -276,7 +282,8 @@ entropy_kernel(const int16_t* __restrict__ z, int per_image, int epi,
           local - (pos >= hv ? bpm : (pos == 0 ? bpm - hv + 1 : 1));
       int pred;
       if (prev < row_first) {
-        pred = init_dc[pos < hv ? 0 : pos - hv + 1];
+        pred = init_dc[static_cast<size_t>(global_row) * init_stride +
+                       (pos < hv ? 0 : pos - hv + 1)];
       } else if (prev >= first_local) {
         pred = ents[prev - first_local][0];
       } else {
@@ -492,8 +499,9 @@ long long buffer_ints(int images, int per_image, int epi, int num_words) {
 // num_entries / per_image images, each cut into n_int = ceil(per_image /
 // epi) rows of epi entries (a multiple of the MCU's hv + 2 blocks);
 // entries at an image's index >= live (clamped to [0, per_image] by the
-// caller) emit nothing. init_dc: 3 int32 DC predictors (Y, Cb, Cr) of every
-// row's first entries. dc_lut, ac_lut: (2, 256) int32 packed tables (row 0
+// caller) emit nothing. init_dc: int32 DC predictors (Y, Cb, Cr) of row r's
+// first entries at init_dc + r * init_stride (stride 0: one vector for every
+// row; 3: one a row). dc_lut, ac_lut: (2, 256) int32 packed tables (row 0
 // luma, row 1 chroma) for image 0, image i's lut_stride * i ints further
 // on. buffer: int32, the output rows (rows * num_words u32, byte-swapped
 // big-endian words), then, from the next even index, one 8-byte status word
@@ -503,8 +511,9 @@ long long buffer_ints(int images, int per_image, int epi, int num_words) {
 // success).
 extern "C" int jt_entropy_encode(const int16_t* z, int num_entries,
                                  int per_image, int epi, int live, int hv,
-                                 const int* init_dc, const int* dc_lut,
-                                 const int* ac_lut, int lut_stride,
+                                 const int* init_dc, int init_stride,
+                                 const int* dc_lut, const int* ac_lut,
+                                 int lut_stride,
                                  long long* interval_bits, int32_t* buffer,
                                  int num_words, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -530,7 +539,8 @@ extern "C" int jt_entropy_encode(const int16_t* z, int num_entries,
       reinterpret_cast<unsigned long long*>(buffer + status_at);
   unsigned* counter = reinterpret_cast<unsigned*>(status + tiles);
   entropy_kernel<<<static_cast<unsigned>(tiles), kThreads, 0, st>>>(
-      z, per_image, epi, live, hv, init_dc, dc_lut, ac_lut, lut_stride,
+      z, per_image, epi, live, hv, init_dc, init_stride, dc_lut, ac_lut,
+      lut_stride,
       tiles_per_image, interval_bits, reinterpret_cast<uint32_t*>(buffer),
       num_words, status, counter);
   return static_cast<int>(cudaGetLastError());

@@ -8,7 +8,9 @@ kernel's spec. The Huffman tables are operands, so per-image optimized
 tables need no new kernel. One launch codes the unbroken scan or every
 restart interval of a restart-framed one (the TPU kernel under vmap), each
 into its own row, and the same for every image of a batch, with one table
-pair for all images or one an image.
+pair for all images or one an image; the rows' DC predictors start from
+one init_dc vector a row when the caller gives them (one image's bands,
+parallel/tiled.py), else from 0.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from jpeg_encoder_torch.ops import entropy as entropy_ops
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTROPY = Kernel(
     "entropy", "jt_entropy_encode",
-    (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P),
+    (_P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _I, _P),
     replaces="jpeg_encoder_tpu/kernels/entropy_pallas.py:570",
 )
 _TILE = 64  # entries a tile (kTile in entropy.cu)
@@ -83,21 +85,26 @@ def _check_operands(z, geom, capacity_bytes, init_dc, luts, epi) -> int:
             "a batch needs entries_per_interval (the geometry's "
             "num_scan_entries for one unbroken scan an image)"
         )
-    if epi is not None:
-        if epi <= 0 or epi % geom.blocks_per_mcu:
+    if epi is not None and (epi <= 0 or epi % geom.blocks_per_mcu):
+        raise ValueError(
+            "entries_per_interval must be a positive multiple of the "
+            f"{geom.blocks_per_mcu} blocks of an MCU, got {epi}"
+        )
+    n_rows = images * -(-per_image // (epi or per_image))
+    if init_dc is not None:
+        if init_dc.shape == (3,) and n_rows > 1:
             raise ValueError(
-                "entries_per_interval must be a positive multiple of the "
-                f"{geom.blocks_per_mcu} blocks of an MCU, got {epi}"
+                "a (3,) init_dc seeds one unbroken scan; the DC predictors "
+                "of restart intervals and of a batch's images start from "
+                f"0, or from an ({n_rows}, 3) init_dc, one vector a row"
             )
-        if init_dc is not None and epi < z.shape[0]:
+        if init_dc.shape not in ((3,), (n_rows, 3)) or (
+            init_dc.device != z.device
+        ):
             raise ValueError(
-                "init_dc seeds one unbroken scan; the DC predictors of "
-                "restart intervals and of a batch's images start from 0"
+                f"init_dc must be a (3,) or ({n_rows}, 3) tensor on z's "
+                "device"
             )
-    if init_dc is not None and (
-        init_dc.shape != (3,) or init_dc.device != z.device
-    ):
-        raise ValueError("init_dc must be a (3,) tensor on z's device")
     if luts is not None:
         for t in luts:
             if t.shape not in ((2, 256), (images, 2, 256)) or (
@@ -124,8 +131,10 @@ def encode_entries(
     """(E, 64) int16 scan entries -> (bytes (capacity_bytes,) uint8,
     total_bits int64 scalar), as ops/entropy.encode_entries.
 
-    init_dc: (3,) initial DC predictors (Y, Cb, Cr), zeros by default; the
-    unbroken scan only. luts: (dc, ac) (2, 256) packed `length << 20 |
+    init_dc: (3,) initial DC predictors (Y, Cb, Cr) of the unbroken scan,
+    zeros by default; or (n_rows, 3), row r's chains starting from
+    init_dc[r] (a stack of one image's bands, each band a row,
+    parallel/tiled.py). luts: (dc, ac) (2, 256) packed `length << 20 |
     code` tables, Annex K by default. live_entries: entries at index >= it
     emit nothing. entries_per_interval (a multiple of the MCU's blocks):
     code each run of that many entries as its own restart interval and
@@ -155,6 +164,7 @@ def encode_entries(
         luts = entropy_ops.device_luts(device)
     dc_lut, ac_lut = luts
     lut_stride = 512 if dc_lut.dim() == 3 else 0
+    init_stride = 3 if init_dc.dim() == 2 else 0
     init_dc = init_dc.to(torch.int32).contiguous()
     dc_lut = dc_lut.to(torch.int32).contiguous()
     ac_lut = ac_lut.to(torch.int32).contiguous()
@@ -175,7 +185,7 @@ def encode_entries(
     with torch.cuda.device(device):
         ENTROPY.launch(
             z.data_ptr(), num_entries, per_image, epi, live,
-            geom.h_factor * geom.v_factor, init_dc.data_ptr(),
+            geom.h_factor * geom.v_factor, init_dc.data_ptr(), init_stride,
             dc_lut.data_ptr(), ac_lut.data_ptr(), lut_stride,
             bits.data_ptr(), buffer.data_ptr(), num_words,
             torch.cuda.current_stream(device).cuda_stream,

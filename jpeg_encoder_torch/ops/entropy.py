@@ -154,6 +154,31 @@ def marshal_scan_inputs(
     return allc.index_select(0, _entry_rows(geom, batch, allc.device))
 
 
+def final_dc(
+    y_coeffs: torch.Tensor,
+    cb_coeffs: torch.Tensor,
+    cr_coeffs: torch.Tensor,
+    geom: FrameGeometry,
+) -> torch.Tensor:
+    """(B, 3) int32: the last DC value of each component chain (Y, Cb, Cr)
+    in scan order, of each of B stacked images.
+
+    The arrays are marshal_scan_inputs' (B * ny luma rows, B * nc of each
+    chroma, image by image; DC in column 0, zigzag or natural order). B
+    bands of one image (parallel/tiled.py) give each band's final DCs,
+    the predictors the next band's chains start from
+    (jpeg_encoder_tpu.ops.entropy.final_dc, with a leading band axis).
+    """
+    ny, nc = geom.num_luma_blocks, geom.num_chroma_blocks
+    band = torch.arange(y_coeffs.shape[0] // ny, device=y_coeffs.device)
+    last_luma = int(scan_layout(geom).luma_order[-1])
+    return torch.stack([
+        y_coeffs[band * ny + last_luma, 0],
+        cb_coeffs[(band + 1) * nc - 1, 0],
+        cr_coeffs[(band + 1) * nc - 1, 0],
+    ], dim=1).to(torch.int32)
+
+
 def interval_rows(
     num_entries: int,
     entries_per_image: int | None,
@@ -230,12 +255,14 @@ def dc_differences(
     (the whole scan by default) takes init_dc's predictor; with several
     intervals that is 0, the reset T.81 E.2.4 defines at every restart
     marker (jpeg_encoder_tpu.ops.entropy.interval_dc_diffs, vmapped over
-    the intervals), and at every image of a batch.
+    the intervals), and at every image of a batch. init_dc is (3,), or
+    (n_rows, 3) with one vector a row (interval_rows' rows): the band path
+    (parallel/tiled.py) seeds each band's row from the band before it.
     """
     num_entries = dc.shape[0]
     bpm = hv + 2
-    first, _, _ = interval_rows(num_entries, entries_per_image,
-                                entries_per_interval, dc.device)
+    first, row, _ = interval_rows(num_entries, entries_per_image,
+                                  entries_per_interval, dc.device)
     e = torch.arange(num_entries, device=dc.device)
     pos = e % bpm
     component = torch.clamp(pos - hv + 1, min=0)  # 0 luma, 1 Cb, 2 Cr
@@ -244,11 +271,13 @@ def dc_differences(
     )
     prev = e - dist
     init = (
-        torch.zeros(3, dtype=dc.dtype, device=dc.device) if init_dc is None
-        else init_dc.to(device=dc.device, dtype=dc.dtype)
+        torch.zeros((1, 3), dtype=dc.dtype, device=dc.device)
+        if init_dc is None
+        else init_dc.to(device=dc.device, dtype=dc.dtype).reshape(-1, 3)
     )
+    row = row if init.shape[0] > 1 else torch.zeros_like(row)
     pred = torch.where(
-        prev >= first, dc[prev.clamp(min=0)], init[component]
+        prev >= first, dc[prev.clamp(min=0)], init[row, component]
     )
     return dc - pred
 
@@ -381,6 +410,8 @@ def symbol_histograms(
     The statistics pass of the optimized-Huffman encode. restart_mcus must
     be the encode pass's: interval DC resets change the DC categories, and
     a category the tables do not cover has no code (a corrupt stream).
+    init_dc is dc_differences': (3,), or one (3,) vector a row of
+    restart_mcus MCUs (a band stack's rows, parallel/tiled.py).
     One bincount over the slots' symbol ids, offset by 1025 per image;
     silent slots and dead entries land in each image's 1025th bin, which
     is dropped.

@@ -138,6 +138,7 @@ def scan_entries(
     *,
     fast_dct: bool = False,
     bin_dct_descale: bool = False,
+    live_rows: int | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """(H, W, 3) uint8 on a device -> ((E, 64) int16 scan entries, the
     (N_i, 64) zigzag coefficients [Y, Cb, Cr]): the front half every core
@@ -149,8 +150,18 @@ def scan_entries(
     rows b * ny ... (b + 1) * ny - 1 of the DCT's raster order), the DCT
     kernels run once on the three stacked planes, and the marshal gathers
     each image's entries from [all Y | all Cb | all Cr].
+
+    live_rows zeroes the Y, Cb and Cr rows at or past it, counted over the
+    B * H rows of the stack, after colour conversion: the band path's
+    padding rows (parallel/tiled.py), which the reference's zero-filled
+    planes hold as 0 in every plane (zero RGB would give Cb = Cr = 128).
     """
     y, cb, cr = color.rgb_to_ycbcr(rgb)
+    if live_rows is not None:
+        rows = rgb.shape[:-2]
+        live = (torch.arange(rows.numel(), device=rgb.device)
+                < live_rows).reshape(*rows, 1)
+        y, cb, cr = (p * live for p in (y, cb, cr))
     y = sample.pad_plane(y, geom)
     cb = sample.subsample_plane(sample.pad_plane(cb, geom), geom)
     cr = sample.subsample_plane(sample.pad_plane(cr, geom), geom)

@@ -1,12 +1,12 @@
 """The port's own host modules against the JAX package's.
 
 jpeg_encoder_torch keeps its own copies of jpeg_encoder_tpu's JAX-free host
-modules (config, tables, io.bmp, io.jfif, native, utils.corpus, oracle): the
-port imports nothing of jpeg_encoder_tpu. These tests hold each copy equal
-to its original: the tables bit for bit, optimal Huffman tables on seeded
-histograms, the frame geometry over a fuzz of sizes and ratios (the quirk
-geometries included), JFIF headers and files, BMP bytes, the oracle's
-files. They also hold the refusal of a foreign config: DctAlgorithm is an
+modules (config, tables, io.bmp, io.jfif, native, utils.bits, utils.corpus,
+oracle): the port imports nothing of jpeg_encoder_tpu. These tests hold each
+copy equal to its original: the tables bit for bit, optimal Huffman tables
+on seeded histograms, the frame geometry over a fuzz of sizes and ratios
+(the quirk geometries included), JFIF headers and files, BMP bytes, the bit
+splice (native and NumPy), the oracle's files. They also hold the refusal of a foreign config: DctAlgorithm is an
 Enum compared by identity, so a jpeg_encoder_tpu config would route RealDCT
 to binDCT in the port.
 
@@ -25,12 +25,13 @@ from jpeg_encoder_tpu import oracle as jax_oracle
 from jpeg_encoder_tpu import tables as jax_tables
 from jpeg_encoder_tpu.io import bmp as jax_bmp
 from jpeg_encoder_tpu.io import jfif as jax_jfif
+from jpeg_encoder_tpu.utils import bits as jax_bits
 from jpeg_encoder_tpu.utils import corpus as jax_corpus
 from jpeg_encoder_torch import native, oracle, pipeline, tables
 from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_torch.io import bmp, jfif
 from jpeg_encoder_torch.parallel import batch
-from jpeg_encoder_torch.utils import corpus
+from jpeg_encoder_torch.utils import bits, corpus
 
 RATIOS = [(4, 4, 4), (4, 2, 2), (4, 2, 0)]
 
@@ -178,6 +179,27 @@ def test_bmp_round_trip_matches_jax(size, tmp_path):
     assert np.array_equal(bmp.read(path), rgb)
     assert np.array_equal(jax_bmp.read(path), rgb)
     assert np.array_equal(bmp.decode(data), rgb)
+
+
+@pytest.mark.parametrize("native_lib", [True, False], ids=["native", "numpy"])
+def test_splice_bitstreams_matches_jax(native_lib, monkeypatch):
+    """utils/bits.py, the band path's bit-level splice: "10110" + "01" +
+    "111111111", then chunks of 0 to 70 bits from a seeded generator."""
+    if not native_lib:
+        monkeypatch.setattr(native, "load", lambda: None)
+    a = np.array([0b10110000], np.uint8)
+    b = np.array([0b01000000], np.uint8)
+    c = np.array([0b11111111, 0b10000000], np.uint8)
+    assert bits.splice_bitstreams([(a, 5), (b, 2), (c, 9)]) == (
+        bytes([0b10110011, 0b11111111]), 16)
+    rng = np.random.default_rng(4)
+    chunks = []
+    for n in rng.integers(0, 71, 25):
+        arr = rng.integers(0, 256, (int(n) + 7) // 8, dtype=np.uint8)
+        if n % 8:
+            arr[-1] &= (0xFF << (8 - n % 8)) & 0xFF
+        chunks.append((arr, int(n)))
+    assert bits.splice_bitstreams(chunks) == jax_bits.splice_bitstreams(chunks)
 
 
 def test_corpus_matches_jax():

@@ -1,6 +1,9 @@
 """The port imports no JAX and nothing of jpeg_encoder_tpu: the machine with
 the card has no JAX installed, and the port keeps its own copies of the
-host modules it needs."""
+host modules it needs. A subprocess imports every module, encodes through
+every entry point (single image, batch, bands, stream, dataset) and runs
+`python -m jpeg_encoder_torch.cli --help`, then lists what got imported;
+an `ast` scan covers every port file and chip_smoke.py."""
 
 import ast
 import glob
@@ -27,22 +30,33 @@ from jpeg_encoder_torch.kernels import _build, dct, entropy, pack
 from jpeg_encoder_torch.ops import color, sample
 from jpeg_encoder_torch.ops import dct as dct_ops
 from jpeg_encoder_torch.ops import entropy as entropy_ops
-from jpeg_encoder_torch.parallel import batch, stream
-from jpeg_encoder_torch.utils import corpus
+from jpeg_encoder_torch.parallel import batch, multihost, stream, tiled
+from jpeg_encoder_torch.utils import bits, corpus
 
 rgb = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
 result = pipeline.encode_array(rgb, jpeg_encoder_torch.EncoderConfig(), device="cpu")
 assert result.file_bytes[:2] == b"\\xff\\xd8" and result.bit_length > 0
 files = batch.encode_batch(np.stack([rgb, rgb[::-1]]), device="cpu")
 assert files[0] == result.file_bytes and len(files) == 2
-import os, tempfile
+assert tiled.encode_tiled(rgb, jpeg_encoder_torch.EncoderConfig(), 2,
+                          device="cpu").file_bytes == result.file_bytes
+import os, runpy, tempfile
 with tempfile.TemporaryDirectory() as tmp:
     path = os.path.join(tmp, "in.bmp")
     bmp.write(path, rgb)
     got = {}
     stream.encode_paths([path], jpeg_encoder_torch.EncoderConfig(),
                         got.__setitem__, device="cpu")
+    done = multihost.encode_dataset([path], tmp, device="cpu")
+    assert done.encoded == 1
+    with open(os.path.join(tmp, "in.jpeg"), "rb") as f:
+        assert f.read() == result.file_bytes
 assert got[path] == result.file_bytes
+sys.argv = ["jpeg_encoder_torch.cli", "--help"]
+try:
+    runpy.run_module("jpeg_encoder_torch.cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 leaked = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "jpeg_encoder_tpu"))
 print("FORBIDDEN_MODULES", leaked)

@@ -8,8 +8,9 @@ on the card they run with
 (--noconftest: tests/conftest.py configures JAX, which that machine lacks.)
 
 They build csrc/*.cu, launch each kernel at small and at 1080p shapes (K1
-also on extreme content, K4 also at its 64-entry tile boundaries and
-twenty times over one 4K noise image) and
+also on extreme content, K4 also at its 64-entry tile boundaries, with
+one init_dc vector a row there, and twenty times over one 4K noise image)
+and
 require exact equality with the plain version run on CPU tensors, except
 K2 (--fast-dct), which is held to max |diff| 1 at mismatch rates below
 1e-3 against its plain version and 5e-4 against the exact K1: K4 also over
@@ -18,8 +19,8 @@ over a batch of images (per-image rows, intervals and tables), and K5 over
 one row and many and on operands at the edges of its walk (runs of 0-bit
 entries, 56-word entries, a row past bit 2^31, capacities that cut an
 entry), with one device operation a call; the per-block tier (K6a/b, K6c) also against K1 and K3
-on the same blocks; then restart, optimized and batch encodes on the card
-against the CPU path. The unmarked tests run everywhere and pin the
+on the same blocks; then restart, optimized, batch and band-tiled encodes
+on the card against the CPU path. The unmarked tests run everywhere and pin the
 build's behaviour.
 """
 
@@ -604,6 +605,8 @@ def _check_k4(cuda, z, geom, capacity, **args):
     dev_args = dict(args)
     if args.get("luts") is not None:
         dev_args["luts"] = tuple(t.to(cuda) for t in args["luts"])
+    if args.get("init_dc") is not None:
+        dev_args["init_dc"] = args["init_dc"].to(cuda)
     before = entropy_kernel.ENTROPY.launches
     got, bits = entropy_kernel.encode_entries(z.to(cuda), geom, capacity,
                                               **dev_args)
@@ -628,6 +631,49 @@ def test_entropy_kernel_tile_boundaries(cuda, ratio, interval):
     for live, capacity in _tile_cases(geom, cap):
         _check_k4(cuda, z, geom, capacity, live_entries=live,
                   entries_per_interval=epi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_mcus", [1, 7, 17, 65, 10000])
+@pytest.mark.parametrize("ratio", RATIOS)
+def test_entropy_kernel_per_row_init_dc(cuda, ratio, row_mcus):
+    """K4 with one init_dc vector a row (the band path's (bands, 3)) at
+    517x333: rows shorter than, about as long as, and longer than a
+    64-entry tile, and one row; every entry live, live entries ending
+    mid-tile, 4096- and 8-byte rows."""
+    config = EncoderConfig(subsampling_ratio=ratio)
+    z, geom = _corpus_entries(config, cuda, size=(517, 333))
+    epi = entropy_ops.entries_per_interval(geom, row_mcus)
+    n_rows = -(-geom.num_scan_entries // epi)
+    init = torch.from_numpy(np.random.default_rng(row_mcus).integers(
+        -300, 300, (n_rows, 3))).to(torch.int32)
+    cap = pipeline.restart_default_capacity_bytes(geom, row_mcus)
+    for live, capacity in _tile_cases(geom, cap):
+        _check_k4(cuda, z, geom, capacity, init_dc=init, live_entries=live,
+                  entries_per_interval=epi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [
+    EncoderConfig(), EncoderConfig(subsampling_ratio=(4, 4, 4)),
+    EncoderConfig(restart_interval=7), EncoderConfig(optimize_huffman=True),
+    EncoderConfig(optimize_huffman=True, restart_interval=5),
+], ids=["420", "444", "restart7", "optimize", "optimize-restart5"])
+@pytest.mark.parametrize("bands", [2, 3, 8])
+def test_encode_tiled_on_card_matches_cpu(cuda, config, bands):
+    """The band path on the card: one launch of the DCT kernel and one of
+    K4 a call, the same file as the CPU path and as encode_array."""
+    from jpeg_encoder_torch.parallel import tiled
+
+    rgb = corpus.landscape(333, 517)
+    before = (dct_kernel.REALDCT.launches, entropy_kernel.ENTROPY.launches)
+    got = tiled.encode_tiled(rgb, config, bands, device=cuda)
+    assert (dct_kernel.REALDCT.launches - before[0],
+            entropy_kernel.ENTROPY.launches - before[1]) == (1, 1)
+    want = tiled.encode_tiled(rgb, config, bands, device="cpu")
+    assert got.file_bytes == want.file_bytes
+    assert got.file_bytes == pipeline.encode_array(rgb, config,
+                                                   device=cuda).file_bytes
 
 
 @pytest.mark.cuda

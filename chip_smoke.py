@@ -40,14 +40,24 @@ file against encode_array on the card, three against the CPU path) and the
 CLI (python -m jpeg_encoder_torch.cli in processes of its own, which
 report their launches: single images, --tile-bands, a glob, --dataset of
 271 1080p and 4K files in one and in two gloo processes and resumed; every
-file against encode_array on the card; the error probes' exit codes), each
+file against encode_array on the card; the error probes' exit codes) and
+the multi-card path (device lists of two and four shares: the one card
+named twice and four times, or distinct cards where the machine has
+several; encode_batch on a 21-image 1080p and a 5-image 4K chunk and on
+every option, stream.encode_paths on 64 1080p BMP files, encode_tiled at
+1080p in 4 bands over 2 shares, 4K in 8 over 4 and every option, the CLI
+on a glob with --devices 1, and two gloo processes encoding the bands of
+one 4K image with multihost.encode_tiled, unbroken, restart and optimize;
+every file against the one-card file on the card), each
 path between a reset and a read of the launch counts, and times the
 kernels (beside their bounds), the batch against a loop of single
 encodes, and the end-to-end encodes, encode_tiled against encode_array
 (host ms with each stage alone, device-busy ms and the top device
 operations), K4 with one init_dc a row against the (3,) form, and each
 dataset process's start-up apart from its steady files/s, in one process
-and in two. It also prints each kernel's
+and in two, one share against two and four (host and device-busy ms per
+image) and each gloo collective of the band encode across processes. It
+also prints each kernel's
 registers, spills and shared memory as ptxas reports them, the
 torch.matmul yardstick of K2 by events and device-busy time beside K2's
 busy time and mismatch rates, the
@@ -969,7 +979,8 @@ def band_operands(cuda, rgb: np.ndarray, config, bands: int):
 
     geom = config.geometry(rgb.shape[1], rgb.shape[0])
     band_rows = tiled._band_rows(geom, bands)
-    z, init = tiled.band_front(rgb, config, geom, bands, band_rows, cuda)
+    z, lasts = tiled.band_front(rgb, config, geom, band_rows, 0, bands, cuda)
+    init = tiled.chained(lasts)
     band_geom = tiled._band_geometry(geom, band_rows * 8 * geom.v_factor)
     stack_geom = tiled._band_geometry(geom, bands * band_geom.height)
     return (z, init, stack_geom, geom.num_scan_entries,
@@ -1759,6 +1770,298 @@ def cli_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
     return counts
 
 
+BAND_WORKER = """
+import json, sys, time
+import torch
+import torch.distributed as dist
+from jpeg_encoder_torch.config import EncoderConfig
+from jpeg_encoder_torch.kernels import dct, entropy, pack
+from jpeg_encoder_torch.parallel import multihost
+from jpeg_encoder_torch.utils import corpus
+
+address, rank, out = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+multihost.initialize(address, 2, rank)
+calls = []
+
+
+def timed(fn):
+    def run(*args, **kwargs):
+        t = time.perf_counter()
+        done = fn(*args, **kwargs)
+        tensor = args[1] if fn.__name__ == "all_gather" else args[0]
+        calls.append((fn.__name__, tensor.numel() * tensor.element_size(),
+                      time.perf_counter() - t))
+        return done
+    return run
+
+
+dist.all_gather, dist.all_reduce = timed(dist.all_gather), timed(
+    dist.all_reduce)
+rgb = corpus.landscape(2160, 3840)
+report = {}
+try:
+    for mode, config in (
+            ("unbroken", EncoderConfig()),
+            ("restart", EncoderConfig(restart_interval=120)),
+            ("optimize", EncoderConfig(optimize_huffman=True))):
+        multihost.encode_tiled(rgb, config, 8)  # warm-up
+        calls.clear()
+        t = time.perf_counter()
+        result = multihost.encode_tiled(rgb, config, 8)
+        report[mode] = {"seconds": time.perf_counter() - t,
+                        "collectives": list(calls)}
+        with open(f"{out}/{mode}-{rank}.jpeg", "wb") as f:
+            f.write(result.file_bytes)
+finally:
+    kernels = (dct.REALDCT, entropy.ENTROPY, dct.BINDCT, dct.FASTDCT,
+               pack.PACK, dct.REALDCT_BLOCKS, dct.BINDCT_BLOCKS)
+    print("LAUNCHES " + json.dumps({k.name: k.launches for k in kernels}),
+          file=sys.stderr)
+    print("REPORT " + json.dumps(report), file=sys.stderr)
+    dist.destroy_process_group()
+"""
+
+
+def share_lists(cuda) -> tuple[list, list, bool]:
+    """The device lists of the multi-card path: two and four shares, on
+    distinct cards where the machine has two or more (the peer copy then
+    runs), else the one card named twice and four times."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return ([torch.device("cuda", i % n) for i in range(2)],
+                [torch.device("cuda", i % n) for i in range(4)], True)
+    return [cuda] * 2, [cuda] * 4, False
+
+
+def multicard_phase(cuda, images_1080, images_4k, card, tmp) -> dict:
+    """The multi-card path, driven with device lists of two and four
+    shares (share_lists): encode_batch on a 21-image 1080p chunk and a
+    5-image 4K chunk at 4:2:0, and on 8 1080p images at 4:2:2, 4:4:4,
+    binDCT, --fast-dct, restart 120 and 7, optimize alone and with restart
+    120; stream.encode_paths on the 64-file 1080p folder (and optimize on
+    8 files); encode_tiled at 1080p in 4 bands over 2 shares and at 4K in
+    8 bands over 4, and at 1080p over every option; the CLI on a glob with
+    --devices 1; and two gloo processes on the one card, each encoding the
+    bands of one 4K image with multihost.encode_tiled (8 bands, 4 a
+    process; unbroken, restart 120, optimize). Every file == the single-
+    card file on the card (encode_batch's for the batch and the stream,
+    encode_array's for the bands and the processes). Then host ms and
+    device-busy ms per image of one share against two and four, and each
+    gloo collective's host seconds. Returns the path's launch counts."""
+    import dataclasses
+    import socket
+    import warnings
+
+    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+    from jpeg_encoder_torch.io import bmp
+    from jpeg_encoder_torch.parallel import batch, stream, tiled
+
+    two, four, distinct = share_lists(cuda)
+    hd = variants(list(images_1080.values()), 64)
+    uhd = variants(list(images_4k.values()), 5)
+    default = EncoderConfig()
+    optimize = EncoderConfig(optimize_huffman=True)
+    batch_cases = [
+        ("21 x 1920x1080 4:2:0", hd[:21], default, two),
+        ("21 x 1920x1080 4:2:0", hd[:21], default, four),
+        ("5 x 3840x2160 4:2:0", uhd, default, two),
+        ("5 x 3840x2160 4:2:0", uhd, default, four),
+        ("8 x 1920x1080 4:2:2", hd[21:29],
+         EncoderConfig(subsampling_ratio=(4, 2, 2)), two),
+        ("8 x 1920x1080 4:4:4", hd[29:37],
+         EncoderConfig(subsampling_ratio=(4, 4, 4)), four),
+        ("8 x 1920x1080 bin-dct", hd[37:45],
+         EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT), four),
+        ("8 x 1920x1080 fast-dct", hd[45:53], EncoderConfig(fast_dct=True),
+         two),
+        ("8 x 1920x1080 restart 120", hd[53:61],
+         EncoderConfig(restart_interval=120), two),
+        ("8 x 1920x1080 restart 7", hd[:8], EncoderConfig(restart_interval=7),
+         four),
+        ("8 x 1920x1080 optimize", hd[8:16], optimize, four),
+        ("8 x 1920x1080 optimize restart 120", hd[16:24],
+         dataclasses.replace(optimize, restart_interval=120), two),
+    ]
+    quirk = np.random.default_rng(9).integers(0, 256, (1089, 1921, 3),
+                                              np.uint8)
+    band_cases = [
+        ("1920x1080 4:2:0 4 bands", hd[0], default, 4, two),
+        ("3840x2160 4:2:0 8 bands", uhd[0], default, 8, four),
+        ("1920x1080 4:2:2 4 bands", hd[1],
+         EncoderConfig(subsampling_ratio=(4, 2, 2)), 4, two),
+        ("1920x1080 4:4:4 8 bands", hd[2],
+         EncoderConfig(subsampling_ratio=(4, 4, 4)), 8, four),
+        ("1920x1080 bin-dct descale 8 bands", hd[3],
+         EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT,
+                       bin_dct_descale=True), 8, four),
+        ("1920x1080 fast-dct 4 bands", hd[4], EncoderConfig(fast_dct=True), 4,
+         two),
+        ("1920x1080 restart 120 4 bands", hd[5],
+         EncoderConfig(restart_interval=120), 4, two),
+        ("1920x1080 restart 7 4 bands", hd[6],
+         EncoderConfig(restart_interval=7), 4, four),
+        ("1920x1080 optimize 8 bands", hd[7], optimize, 8, four),
+        ("3840x2160 optimize restart 120 8 bands", uhd[1],
+         dataclasses.replace(optimize, restart_interval=120), 8, four),
+        ("1921x1089 4:2:0 (quirk geometry) 4 bands", quirk, default, 4, two),
+    ]
+    src, out = os.path.join(tmp, "src"), os.path.join(tmp, "out")
+    os.makedirs(src)
+    os.makedirs(out)
+    paths = []
+    for i, rgb in enumerate(hd):
+        paths.append(os.path.join(src, f"frame{i:02d}.bmp"))
+        bmp.write(paths[-1], rgb)
+    with socket.create_server(("localhost", 0)) as s:
+        address = f"localhost:{s.getsockname()[1]}"
+    workers = [[sys.executable, "-c", BAND_WORKER, address, str(rank), out]
+               for rank in range(2)]
+    got_batch, got_bands, streamed, worker_logs = [], [], {}, []
+
+    def drive():
+        # The gloo pair first, so its start-up overlaps the rest.
+        procs = [subprocess.Popen(w, cwd=REPO, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for w in workers]
+        try:
+            for _, images, config, shares in batch_cases:
+                got_batch.append(batch.encode_batch(images, config,
+                                                    devices=shares))
+            for shares in (two, four):
+                streamed[len(shares)] = {}
+                stream.encode_paths(paths, default,
+                                    streamed[len(shares)].__setitem__,
+                                    devices=shares)
+            streamed["optimize"] = {}
+            stream.encode_paths(paths[:8], optimize,
+                                streamed["optimize"].__setitem__,
+                                devices=two)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for _, rgb, config, bands, shares in band_cases:
+                    got_bands.append(tiled.encode_tiled(rgb, config, bands,
+                                                        devices=shares))
+            check([str(w.message)[:10] for w in caught] == ["dimensions"],
+                  f"multicard bands warned "
+                  f"{[str(w.message) for w in caught]}")
+            launches = {}
+            cli = run_cli([["-i", os.path.join(src, "frame0[0-7].bmp"),
+                            "-o", os.path.join(out, "glob"), "--devices",
+                            "1"]], launches)
+            check(cli[0][0] == 0, f"cli --devices 1: exit {cli[0][0]}\n"
+                  f"{cli[0][2]}")
+            done = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, (stdout, stderr) in zip(procs, done):
+            check(p.returncode == 0, f"band worker exit {p.returncode}:\n"
+                  f"{stdout}\n{stderr}")
+            for line in stderr.splitlines():
+                if line.startswith("LAUNCHES "):
+                    for name, n in json.loads(line[9:]).items():
+                        launches[name] = launches.get(name, 0) + n
+        worker_logs.extend(stderr for _, stderr in done)
+        return launches
+
+    counts = counted("multicard", drive, BATCH_KERNELS)
+    kind = ("distinct cards: the DC hop and the psum crossed cards (peer "
+            "copies ran)" if distinct else "one card named in every entry: "
+            "the peer copy between distinct cards did not run")
+    print(f"multicard shares: {[str(d) for d in two]} and "
+          f"{[str(d) for d in four]} ({kind})", flush=True)
+    for (label, images, config, shares), files in zip(batch_cases, got_batch):
+        want = batch.encode_batch(images, config, device=cuda)
+        for i, (g, w) in enumerate(zip(files, want)):
+            check(g == w, f"multicard batch {label} over {len(shares)} "
+                  f"shares, member {i}: != the one-card batch")
+        print(f"multicard batch {label} over {len(shares)} shares: every "
+              "file == the one-card batch on the card", flush=True)
+    for key, got in streamed.items():
+        config, part = ((optimize, paths[:8]) if key == "optimize"
+                        else (default, paths))
+        want = batch.encode_batch(hd[: len(part)], config, device=cuda)
+        check([got[p] for p in part] == want,
+              f"multicard stream {key}: != the one-card batch")
+        print(f"multicard stream {len(part)} x 1920x1080 "
+              f"{'optimize over 2' if key == 'optimize' else f'over {key}'}"
+              " shares: every file == the one-card batch on the card",
+              flush=True)
+    for (label, rgb, config, bands, shares), got in zip(band_cases,
+                                                        got_bands):
+        want = pipeline.encode_array(rgb, config, device=cuda)
+        check(got.file_bytes == want.file_bytes,
+              f"multicard bands {label} over {len(shares)} shares: != "
+              "encode_array on the card")
+        print(f"multicard bands {label} over {len(shares)} shares: == "
+              "encode_array on the card", flush=True)
+    for i in range(8):
+        with open(os.path.join(out, "glob", f"frame{i:02d}.jpeg"), "rb") as f:
+            check(f.read() == pipeline.encode_array(
+                hd[i], default, device=cuda).file_bytes,
+                f"multicard cli --devices 1 frame{i:02d} != encode_array")
+    print("multicard cli -i 'frame0[0-7].bmp' --devices 1: 8 files == "
+          "encode_array on the card", flush=True)
+    reports = [json.loads(next(line[7:] for line in stderr.splitlines()
+                               if line.startswith("REPORT ")))
+               for stderr in worker_logs]
+    rgb = images_4k["landscape"]
+    for mode, config in (("unbroken", default),
+                         ("restart", EncoderConfig(restart_interval=120)),
+                         ("optimize", optimize)):
+        want = pipeline.encode_array(rgb, config, device=cuda).file_bytes
+        for rank in range(2):
+            with open(os.path.join(out, f"{mode}-{rank}.jpeg"), "rb") as f:
+                check(f.read() == want, f"multicard gloo {mode} rank {rank}:"
+                      " != encode_array on the card")
+        calls = "; ".join(
+            f"rank {rank} {r[mode]['seconds'] * 1e3:.3f} ms: " + ", ".join(
+                f"{name} {nbytes} B {sec * 1e3:.3f} ms"
+                for name, nbytes, sec in r[mode]["collectives"])
+            for rank, r in enumerate(reports))
+        print(f"multicard gloo 3840x2160 8 bands over 2 processes {mode}: "
+              f"both files == encode_array on the card; host {calls} "
+              f"({card})", flush=True)
+
+    # One share against two and four, in turns (1, 2, 4, 4, 2, 1).
+    timings = [
+        ("batch 21 x 1920x1080", 21, lambda **kw: batch.encode_batch(
+            hd[:21], default, **kw)),
+        ("batch 5 x 3840x2160", 5, lambda **kw: batch.encode_batch(
+            uhd, default, **kw)),
+        ("stream 64 x 1920x1080 BMP files", 64, lambda **kw:
+            stream.encode_paths(paths, default, lambda p, d: None, **kw)),
+        ("bands 1920x1080 4 bands", 1, lambda **kw: tiled.encode_tiled(
+            hd[0], default, 4, **kw)),
+        ("bands 3840x2160 8 bands", 1, lambda **kw: tiled.encode_tiled(
+            uhd[0], default, 8, **kw)),
+    ]
+    for label, n, run in timings:
+        forms = (("one share", dict(device=cuda)),
+                 ("2 shares", dict(devices=two)),
+                 ("4 shares", dict(devices=four)))
+        host = {name: [] for name, _ in forms}
+
+        def call(kw):
+            run(**kw)
+            torch.cuda.synchronize()
+
+        for name, kw in forms + forms[::-1]:
+            host[name].append(host_ms(lambda: call(kw), reps=3))
+        busy = {name: busy_ms(lambda: call(kw), reps=3) for name, kw in forms}
+        launched = {name: sum(c for _, c, _ in device_ops(
+            lambda: call(kw), reps=2)) for name, kw in forms}
+        print(f"time multicard {label} 4:2:0, ms per image, host (mean of "
+              "two medians of 3) / device-busy, and device operations a "
+              "call: " + "; ".join(
+                  f"{name} {sum(host[name]) / 2 / n:.3f} / "
+                  f"{fmt(None if busy[name] is None else busy[name] / n)}, "
+                  f"{launched[name]:g} ops" for name, _ in forms)
+              + f" ({card})", flush=True)
+    return counts
+
+
 def interval_pairs(z, geom):
     """(name, kernel, plain) of K4 in interval mode (restart every 120 MCUs,
     one MCU row at 1080p, and every MCU) and of K5 on the assemble tier's
@@ -2201,6 +2504,11 @@ def main() -> int:
         path_counts.append(cli_phase(cuda, images_1080, images_4k, card,
                                      tmp))
     phase_s["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
+        path_counts.append(multicard_phase(cuda, images_1080, images_4k,
+                                           card, tmp))
+    phase_s["multicard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     times, busy, bounds, library, library_busy = timing_phase(
         cuda, images_1080, images_4k, card)

@@ -12,10 +12,12 @@ plus multi-image batch input (globs, through the stream engine), datasets
 across processes, band tiling, --fast-dct and stage timing.
 
 --device picks where the encode runs: "cuda" by default, "cpu" for the
-kernels' plain versions. There is no fallback: without a card the default
-exits 1. --devices N is the band count under --tile-bands; batch and
-dataset input run on one card a process, so there it may not ask for more
-cards than the machine has.
+kernels' plain versions, "cuda:K" to pin everything to card K. There is no
+fallback: without a card the default exits 1. --devices N has the JAX
+package's meaning: batch and dataset input are sharded over the first N
+cards (default: every card present; N above the cards present exits 2),
+and under --tile-bands N is the band count, the bands spread over the
+cards present.
 """
 
 from __future__ import annotations
@@ -117,14 +119,16 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--device", default="cuda", metavar="DEVICE",
-        help="where to encode: cuda (default; cuda:N for a given card) or "
-        "cpu (the kernels' plain versions). No fallback",
+        help="where to encode: cuda (default: the cards --devices names; "
+        "cuda:N pins everything to card N) or cpu (the kernels' plain "
+        "versions). No fallback",
     )
     parser.add_argument(
         "--devices", type=int, default=0, metavar="N",
-        help="with --tile-bands: the band count (default: the cards "
-        "present, 1 on the CPU). Batch and dataset input run on one card "
-        "a process; N above the cards present is an error",
+        help="shard batch and dataset input over the first N cards "
+        "(default: every card present; N above the cards present is an "
+        "error); with --tile-bands: the band count (default: the cards "
+        "present, 1 on the CPU), the bands spread over the cards present",
     )
     parser.add_argument(
         "--tile-bands", action="store_true",
@@ -171,6 +175,15 @@ def _cards(device) -> int:
     import torch
 
     return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _placement(device, count: int | None) -> dict:
+    """The device keywords of an entry point: the first `count` cards for
+    an unindexed --device cuda (None: the entry point's default), else the
+    one device asked for (a card given by index, or the CPU)."""
+    if device.type == "cuda" and device.index is None:
+        return {"devices": count}
+    return {"device": device}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -229,8 +242,8 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     if (args.dataset or len(inputs) > 1) and args.devices > _cards(device):
         print(f"error: --devices {args.devices}: only {_cards(device)} "
-              f"{device.type} device(s) present, and batch or dataset input "
-              "runs on one device a process", file=sys.stderr)
+              f"{device.type} device(s) present to shard batch or dataset "
+              "input over", file=sys.stderr)
         return 2
     if device.type == "cuda" and not torch.cuda.is_available():
         print("error: no CUDA device (torch.cuda.is_available() is False); "
@@ -271,9 +284,10 @@ def main(argv: list[str] | None = None) -> int:
             if args.tile_bands:
                 from jpeg_encoder_torch.parallel import tiled
 
+                bands = args.devices or _cards(device)
                 result = tiled.encode_tiled(
-                    rgb, config, args.devices or _cards(device),
-                    device=device,
+                    rgb, config, bands,
+                    **_placement(device, min(bands, _cards(device))),
                 )
             else:
                 result = pipeline.encode_array(rgb, config, device=device)
@@ -302,10 +316,11 @@ def _run_dataset(inputs: list[str], args, config: EncoderConfig,
     """Dataset mode: the CLI surface of parallel/multihost.
 
     A process group joined when --coordinator is given, strided file
-    assignment by rank, the stream engine on this process's card, a
+    assignment by rank, the stream engine on this process's cards, a
     resumable per-process manifest, and a summary gathered from every
-    process. The default --device (cuda, no index) lets encode_dataset
-    put rank r on card r % cards.
+    process. The default --device (cuda, no index) without --devices lets
+    encode_dataset take every card in one process and put rank r on card
+    r % cards in several; --devices N takes the first N cards.
     """
     import torch.distributed as dist
 
@@ -337,7 +352,7 @@ def _run_dataset(inputs: list[str], args, config: EncoderConfig,
         try:
             result = multihost.encode_dataset(
                 paths, out_dir, config, resume=not args.no_resume,
-                device=None if args.device == "cuda" else device,
+                **_placement(device, args.devices or None),
             )
         except (OSError, ValueError) as e:
             print(f"error: {e}", file=sys.stderr)
@@ -374,7 +389,8 @@ def _run_batch(inputs: list[str], args, config: EncoderConfig,
                device) -> int:
     """Batch encode through the overlapped decode | compute | write engine
     (parallel/stream.py over parallel/batch.py): BMP decode of chunk k+1
-    and file writes of chunk k-1 run while chunk k's kernels run."""
+    and file writes of chunk k-1 run while chunk k's kernels run; chunks
+    go to the first --devices cards in turn (default: every card)."""
     from jpeg_encoder_torch.parallel import stream
 
     out_dir = args.output or "."
@@ -387,7 +403,9 @@ def _run_batch(inputs: list[str], args, config: EncoderConfig,
         print(f"encoded {path} -> {os.path.join(out_dir, name)}")
 
     try:
-        stats = stream.encode_paths(inputs, config, emit, device=device)
+        stats = stream.encode_paths(
+            inputs, config, emit,
+            **_placement(device, args.devices or _cards(device)))
     except (OSError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1

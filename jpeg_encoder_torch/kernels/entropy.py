@@ -39,8 +39,11 @@ MAX_NUM_WORDS = 2**31 - 1
 @functools.lru_cache(maxsize=8)
 def _zero_dc(device: torch.device) -> torch.Tensor:
     """The default init_dc on device, made once: a call then runs no
-    device operation but the kernel's memset and the kernel."""
-    return torch.zeros(3, dtype=torch.int32, device=device)
+    device operation but the kernel's memset and the kernel. Made by a
+    blocking copy, complete when it returns, as every cached operand is:
+    the launches of other streams (parallel/devices.py's shares) read it
+    with no event to wait on."""
+    return torch.zeros(3, dtype=torch.int32).to(device)
 
 
 def worst_case_bits(geom: FrameGeometry) -> int:

@@ -1,1 +1,1 @@
-"""Many-image encodes: batches of same-sized images on one device."""
+"""Many-image and multi-device encodes: batches, streams, bands, datasets."""

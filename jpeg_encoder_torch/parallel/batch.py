@@ -1,8 +1,9 @@
-"""Batch encode: many same-sized images, one launch per kernel per chunk.
+"""Batch encode: many same-sized images, one launch per kernel per share.
 
-Port of jpeg_encoder_tpu/parallel/batch.py to one device. The JAX package
-vmaps its single-image program over the batch; here the batch dimension is
-written out (pipeline.scan_entries on (B, H, W, 3)):
+Port of jpeg_encoder_tpu/parallel/batch.py. The JAX package vmaps its
+single-image program over the batch and shards the batch over a mesh;
+here the batch dimension is written out (pipeline.scan_entries on (B, H,
+W, 3)), and `devices` takes the mesh's place:
 
 * the front (colour, pad, subsample) runs on (B, H, W, 3) at once;
 * the B padded planes of each component are stacked into one plane, so K1,
@@ -13,8 +14,12 @@ written out (pipeline.scan_entries on (B, H, W, 3)):
   pair for all or, for optimized Huffman, one per image.
 
 encode_batch cuts the batch into chunks (chunk_size_images): an input-byte
-budget and an image cap (K4's 64-bit bit offsets are relative to a row, an
-image or a restart interval, so they bound neither). Each chunk is
+budget and an image cap a share (K4's 64-bit bit offsets are relative to a
+row, an image or a restart interval, so they bound neither). With
+`devices` (a count or a list, parallel/devices.py) a chunk is split into
+contiguous shares, one an entry, as P(DATA_AXIS) splits the JAX batch:
+each share is uploaded and enqueued on its own card and stream before any
+share is fetched, and the files come back in input order. Each share is
 dispatch_chunk (upload_chunk, a synchronous pageable copy, then
 dispatch_uploaded: device work on the current stream, enqueued, nothing
 synchronised; parallel/stream.py uploads on its own and calls
@@ -23,7 +28,7 @@ counts, then one copy of every row up to the longest payload) and
 assemble_chunk (JFIF files on the host; a member whose payload overflowed
 the chunk's shared capacity is re-encoded alone through
 pipeline.encode_array from the next capacity rung). Optimized Huffman runs
-the two passes over the chunk: statistics (one bincount), tables on the
+the two passes over each share: statistics (one bincount), tables on the
 host, then the encode of the same scan entries with per-image tables.
 
 Files are byte-identical to pipeline.encode_array's for every config. Like
@@ -43,19 +48,23 @@ from jpeg_encoder_torch.config import EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.io import jfif
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
+from jpeg_encoder_torch.parallel import devices as devices_lib
 
-# Input-byte budget of one chunk (the decoded uint8 images; coefficients
-# and buffers scale with it), and a cap on images per chunk for tiny
-# images. Tests monkeypatch both.
+# Input-byte budget of one share of a chunk (the decoded uint8 images;
+# coefficients and buffers scale with it), and a cap on a share's images
+# for tiny images. Tests monkeypatch both.
 CHUNK_INPUT_BUDGET = 128 * 1024 * 1024
 MAX_IMAGES_PER_CHUNK = 64
 
 
-def chunk_size_images(geom: FrameGeometry) -> int:
-    """Images per dispatch for this geometry: at most CHUNK_INPUT_BUDGET
-    bytes of input and MAX_IMAGES_PER_CHUNK images; always at least one."""
+def chunk_size_images(geom: FrameGeometry, n_dev: int = 1) -> int:
+    """Images per dispatch for this geometry over n_dev shares (the JAX
+    package's chunk_size_images): at most CHUNK_INPUT_BUDGET bytes of
+    input and MAX_IMAGES_PER_CHUNK images a share, at least one."""
     per_image = geom.height * geom.width * 3
-    return max(1, min(MAX_IMAGES_PER_CHUNK, CHUNK_INPUT_BUDGET // per_image))
+    per_dev = max(1, min(MAX_IMAGES_PER_CHUNK,
+                         CHUNK_INPUT_BUDGET // per_image))
+    return per_dev * n_dev
 
 
 def encode_batch(
@@ -63,9 +72,12 @@ def encode_batch(
     config: EncoderConfig = EncoderConfig(),
     *,
     device: str | torch.device = "cuda",
+    devices=None,
 ) -> list[bytes]:
     """Encode (B, H, W, 3) uint8 images -> list of B JFIF files, on
-    `device` (the card by default); batches beyond the geometry's chunk
+    `device` (the card by default), or over `devices` (a count of cards
+    or a list of devices, which may repeat one: each entry takes a
+    contiguous share of every chunk); batches beyond the geometry's chunk
     size run as several bounded dispatches."""
     pipeline.check_config(config)
     if images.ndim != 4 or images.shape[3] != 3:
@@ -74,16 +86,23 @@ def encode_batch(
     geom = config.geometry(width, height)
     if config.restart_interval is not None:
         pipeline.check_restart_geometry(geom)
-    chunk = chunk_size_images(geom)
+    shares = devices_lib.shares(device, devices)
+    chunk = chunk_size_images(geom, len(shares))
     encode_one_chunk = (
         _encode_chunk_optimized if config.optimize_huffman else _encode_chunk
     )
     files: list[bytes] = []
     for start in range(0, batch, chunk):
         files.extend(encode_one_chunk(
-            images[start : start + chunk], config, geom, device
+            images[start : start + chunk], config, geom, shares
         ))
     return files
+
+
+def _shares_of(images, shares):
+    """[(share, its contiguous images)] of one chunk."""
+    return [(share, images[lo:hi]) for share, (lo, hi) in
+            zip(shares, devices_lib.split(len(images), len(shares)))]
 
 
 def chunk_capacity_bytes(config: EncoderConfig, geom: FrameGeometry) -> int:
@@ -224,30 +243,53 @@ def _retry(rgb, config, geom, capacity, device) -> bytes:
     ).file_bytes
 
 
-def _encode_chunk(images, config, geom, device) -> list[bytes]:
-    """One bounded dispatch, synchronously: dispatch -> fetch -> assemble."""
+def _encode_chunk(images, config, geom, shares) -> list[bytes]:
+    """One bounded dispatch: every share dispatched on its own stream, then
+    each fetched and assembled in turn (a member that overflowed is
+    retried on its share's card)."""
     capacity = chunk_capacity_bytes(config, geom)
-    payloads, bits = dispatch_chunk(images, config, geom, capacity, device)
-    payloads_np, bits_np = fetch_chunk(payloads, bits)
-    return assemble_chunk(images, config, geom, capacity, payloads_np,
-                          bits_np, device)
+    parts = _shares_of(images, shares)
+    enqueued = []
+    for share, part in parts:
+        with share.on():
+            enqueued.append(dispatch_chunk(part, config, geom, capacity,
+                                           share.device))
+    files = []
+    for (share, part), (payloads, bits) in zip(parts, enqueued):
+        with share.on():
+            payloads_np, bits_np = fetch_chunk(payloads, bits)
+            files.extend(assemble_chunk(part, config, geom, capacity,
+                                        payloads_np, bits_np, share.device))
+    return files
 
 
-def _encode_chunk_optimized(images, config, geom, device) -> list[bytes]:
-    """One bounded optimized-Huffman dispatch: the statistics pass over the
-    chunk, each member's optimal tables on the host, then one encode of the
-    same scan entries with the per-image tables."""
+def _encode_chunk_optimized(images, config, geom, shares) -> list[bytes]:
+    """One bounded optimized-Huffman dispatch: the statistics pass of every
+    share, then for each share its members' optimal tables on the host and
+    one encode of the same scan entries with them, then every share's
+    fetch and assembly."""
     capacity = chunk_capacity_bytes(config, geom)
-    z, hists = dispatch_optimized_stats(images, config, geom, device)
-    specs_list, dc_luts, ac_luts = build_chunk_luts(hists.cpu().numpy())
-    payloads, bits = dispatch_optimized_encode(
-        z, dc_luts, ac_luts, config, geom, capacity
-    )
-    payloads_np, bits_np = fetch_chunk(payloads, bits)
-    return assemble_chunk_optimized(
-        images, config, geom, capacity, payloads_np, bits_np, specs_list,
-        device,
-    )
+    parts = _shares_of(images, shares)
+    stats = []
+    for share, part in parts:
+        with share.on():
+            stats.append(dispatch_optimized_stats(part, config, geom,
+                                                  share.device))
+    enqueued = []
+    for (share, _), (z, hists) in zip(parts, stats):
+        with share.on():
+            specs_list, dc_luts, ac_luts = build_chunk_luts(
+                hists.cpu().numpy())
+            enqueued.append((specs_list, *dispatch_optimized_encode(
+                z, dc_luts, ac_luts, config, geom, capacity)))
+    files = []
+    for (share, part), (specs_list, payloads, bits) in zip(parts, enqueued):
+        with share.on():
+            payloads_np, bits_np = fetch_chunk(payloads, bits)
+            files.extend(assemble_chunk_optimized(
+                part, config, geom, capacity, payloads_np, bits_np,
+                specs_list, share.device))
+    return files
 
 
 def dispatch_optimized_stats(

@@ -1,8 +1,10 @@
-"""Overlapped file-to-file encoding on one card: decode | dispatch | write.
+"""Overlapped file-to-file encoding: decode | dispatch | write.
 
-Port of jpeg_encoder_tpu/parallel/stream.py::encode_paths to one device
-(the mesh argument goes). The three legs run at once, on queues of depth
-QUEUE_DEPTH:
+Port of jpeg_encoder_tpu/parallel/stream.py::encode_paths; `devices` (a
+count of cards or a list of devices, parallel/devices.py) takes the mesh's
+place. Chunk k goes whole to share k mod len(devices), and each share has
+its own copy, statistics, compute and write streams on its card. The
+three legs run at once, on queues of depth QUEUE_DEPTH a share:
 
   loader thread : chunk k+1's BMP files read and decoded into a pinned
                   host buffer, an image a thread of a decoder pool (one
@@ -24,14 +26,16 @@ Host memory and device memory hold a few chunks whatever the number of
 files; chunk sizes come from parallel/batch.chunk_size_images.
 
 The pinned buffers are one ring per dimension group, QUEUE_DEPTH + 1
-deep, allocated when the group starts; a slot is decoded into again only
-after the copy out of it has completed (its event). A chunk's device copy
+deep, allocated when the group starts and shared by the shares; a slot is
+decoded into again only after the copy out of it has completed (the event
+recorded on the copy stream of the card that copied it). A chunk's device copy
 is allocated on the copy stream and marked (record_stream) for each stream
 that reads it, so the caching allocator never hands its memory out while a
-kernel may still read it. All four streams come from torch's pool of
+kernel may still read it. All the streams come from torch's pool of
 non-blocking streams, never the legacy default stream, which would
 serialise with them. The kernel wrappers launch on the current stream of
-the thread that calls them, so each leg runs inside its stream's context.
+the thread that calls them, so each leg runs inside its share's device and
+stream context (devices.Share.on).
 
 device="cpu" runs the same three legs and decoder pool with the kernels'
 plain versions and no staging: a chunk's decoded array is its "uploaded"
@@ -44,7 +48,6 @@ JAX package's does.
 from __future__ import annotations
 
 import concurrent.futures
-import contextlib
 import dataclasses
 import os
 import queue
@@ -57,6 +60,7 @@ from jpeg_encoder_torch import pipeline
 from jpeg_encoder_torch.config import EncoderConfig
 from jpeg_encoder_torch.io import bmp
 from jpeg_encoder_torch.parallel import batch as batch_lib
+from jpeg_encoder_torch.parallel import devices as devices_lib
 
 QUEUE_DEPTH = 2
 _DONE = object()
@@ -76,6 +80,7 @@ class StreamStats:
 class _Loaded:
     """One chunk as the loader hands it to the main thread."""
 
+    share: int                          # the index of its share
     dims: tuple[int, int]
     paths: list[str]
     rgb: torch.Tensor                   # (B, H, W, 3) uint8 on the device
@@ -136,9 +141,14 @@ def _work(paths: list[str], config: EncoderConfig):
     return work
 
 
-def _on(stream: torch.cuda.Stream | None):
-    return contextlib.nullcontext() if stream is None else torch.cuda.stream(
-        stream)
+def _legs(device: torch.device, k: int) -> tuple[devices_lib.Share, ...]:
+    """The k-th share of `device`'s four legs: copy and statistics
+    (loader), compute (main), write (writer), each on a stream of its own
+    on a card (devices.stream, kept from call to call)."""
+    return tuple(
+        devices_lib.Share(device, devices_lib.stream(device, role, k)
+                          if device.type == "cuda" else None)
+        for role in ("copy", "stats", "compute", "write"))
 
 
 def encode_paths(
@@ -147,9 +157,13 @@ def encode_paths(
     emit,
     *,
     device: str | torch.device = "cuda",
+    devices=None,
 ) -> StreamStats:
     """Encode the BMP files at `paths` through the overlapped pipeline, on
-    `device` (the card by default; "cpu" runs the plain versions).
+    `device` (the card by default; "cpu" runs the plain versions), or over
+    `devices` (a count of cards or a list of devices, which may repeat
+    one): chunk k then goes to entry k mod len(devices), each entry with
+    its own four streams.
 
     `emit(path, file_bytes)` is called once per input, from the writer
     thread, in path order within each dimension group (groups run in
@@ -161,36 +175,32 @@ def encode_paths(
     """
     t0 = time.perf_counter()
     pipeline.check_config(config)
-    device = torch.device(device)
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    cuda = device.type == "cuda"
-    if cuda and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    # copy (loader), statistics (loader), compute (main), write (writer).
-    streams = ([torch.cuda.Stream(device) for _ in range(4)] if cuda
-               else [None] * 4)
-    copy_s, stats_s, compute_s, write_s = streams
+    targets = devices_lib.resolve(device if devices is None else devices)
+    cuda = targets[0].type == "cuda"
+    shares = [_legs(d, k)
+              for d, k in zip(targets, devices_lib.ordinals(targets))]
     work = _work(paths, config)
     optimize = config.optimize_huffman
 
-    load_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
-    write_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH)
+    # Deep enough that every share can hold a chunk in each leg.
+    load_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH * len(shares))
+    write_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH * len(shares))
     stats = StreamStats()
     errors: list[BaseException] = []
     stop = threading.Event()
 
-    def load(dims, chunk_paths, ring, decoders):
+    def load(dims, chunk_paths, ring, decoders, copy):
         """Read and decode a chunk's files, an image a thread of the
         decoder pool, into a pinned slot (on the card) or a new array (on
-        the CPU); on the card each image is copied up on the copy stream as
-        soon as it is decoded. Returns (the chunk on the device, the
-        copies' event or None)."""
+        the CPU); on the card each image is copied up on the share's copy
+        stream as soon as it is decoded. Returns (the chunk on the device,
+        the copies' event or None)."""
         n = len(chunk_paths)
         if cuda:
             slot, host = ring.take(n)
-            with torch.cuda.stream(copy_s):
-                rgb = torch.empty(host.shape, dtype=torch.uint8, device=device)
+            with copy.on():
+                rgb = torch.empty(host.shape, dtype=torch.uint8,
+                                  device=copy.device)
         else:
             host = rgb = torch.empty((n, dims[1], dims[0], 3),
                                      dtype=torch.uint8)
@@ -200,14 +210,13 @@ def encode_paths(
         for j, done in enumerate(decoded):
             done.result()
             if cuda:
-                with torch.cuda.stream(copy_s):
+                with copy.on():
                     rgb[j].copy_(host[j], non_blocking=True)
         stats.decode_seconds += time.perf_counter() - t
-        if not cuda:
-            return rgb, None
-        copied = torch.cuda.Event()
-        copied.record(copy_s)
-        ring.release(slot, copied)
+        copied = copy.ready()
+        if cuda:
+            # The slot is decoded into again once this card's copy is done.
+            ring.release(slot, copied)
         return rgb, copied
 
     def loader():
@@ -215,29 +224,29 @@ def encode_paths(
         decoders = concurrent.futures.ThreadPoolExecutor(
             len(os.sched_getaffinity(0)))
         try:
-            for dims, chunk_paths in work:
+            for k, (dims, chunk_paths) in enumerate(work):
                 if stop.is_set():
                     return
+                share = k % len(shares)
+                copy, stats_leg = shares[share][:2]
                 geom = config.geometry(*dims)
                 if cuda and dims != ring_dims:
                     shape = (batch_lib.chunk_size_images(geom), dims[1],
                              dims[0], 3)
                     ring, ring_dims = _PinnedRing(QUEUE_DEPTH + 1, shape), dims
-                rgb, ready = load(dims, chunk_paths, ring, decoders)
-                item = _Loaded(dims, chunk_paths, rgb, ready)
+                rgb, ready = load(dims, chunk_paths, ring, decoders, copy)
+                item = _Loaded(share, dims, chunk_paths, rgb, ready)
                 if optimize:
                     # Enqueued here, so chunk k+1's statistics run on the
                     # card while the main thread builds chunk k's tables
                     # and dispatches its encode.
-                    with _on(stats_s):
+                    with stats_leg.on():
+                        stats_leg.wait(ready)
                         if cuda:
-                            stats_s.wait_event(ready)
-                            rgb.record_stream(stats_s)
+                            rgb.record_stream(stats_leg.stream)
                         item.z, item.hists = batch_lib.optimized_stats_uploaded(
                             rgb, config, geom)
-                        if cuda:
-                            item.ready = torch.cuda.Event()
-                            item.ready.record(stats_s)
+                        item.ready = stats_leg.ready()
                 load_q.put(item)
         except BaseException as e:  # propagate to the main thread
             errors.append(e)
@@ -247,27 +256,27 @@ def encode_paths(
 
     def writer():
         try:
-            with _on(write_s):
-                while True:
-                    item = write_q.get()
-                    if item is _DONE:
-                        return
-                    (chunk_paths, rgb, geom, capacity, payloads, bits,
-                     specs_list, done) = item
-                    t = time.perf_counter()
-                    if cuda:
-                        write_s.wait_event(done)
+            while True:
+                item = write_q.get()
+                if item is _DONE:
+                    return
+                (share, chunk_paths, rgb, geom, capacity, payloads, bits,
+                 specs_list, done) = item
+                write = shares[share][3]
+                t = time.perf_counter()
+                with write.on():
+                    write.wait(done)
                     payloads_np, bits_np = batch_lib.fetch_chunk(payloads,
                                                                  bits)
                     files = batch_lib.assemble_chunk(
                         rgb, config, geom, capacity, payloads_np, bits_np,
-                        device, specs_list)
-                    for path, data in zip(chunk_paths, files):
-                        emit(path, data)
-                        stats.encoded += 1
-                        stats.output_bytes += len(data)
-                        stats.pixels += geom.width * geom.height
-                    stats.write_seconds += time.perf_counter() - t
+                        write.device, specs_list)
+                for path, data in zip(chunk_paths, files):
+                    emit(path, data)
+                    stats.encoded += 1
+                    stats.output_bytes += len(data)
+                    stats.pixels += geom.width * geom.height
+                stats.write_seconds += time.perf_counter() - t
         except BaseException as e:
             errors.append(e)
             stop.set()
@@ -281,38 +290,35 @@ def encode_paths(
     wt.start()
     loader_done = False
     try:
-        with _on(compute_s):
-            while True:
-                item = load_q.get()
-                if item is _DONE:
-                    loader_done = True
-                    break
-                if stop.is_set():
-                    continue  # drain after a writer error
-                geom = config.geometry(*item.dims)
-                capacity = batch_lib.chunk_capacity_bytes(config, geom)
-                if cuda:
-                    compute_s.wait_event(item.ready)
+        while True:
+            item = load_q.get()
+            if item is _DONE:
+                loader_done = True
+                break
+            if stop.is_set():
+                continue  # drain after a writer error
+            geom = config.geometry(*item.dims)
+            capacity = batch_lib.chunk_capacity_bytes(config, geom)
+            compute = shares[item.share][2]
+            with compute.on():
+                compute.wait(item.ready)
                 specs_list = None
                 if optimize:
                     specs_list, dc_luts, ac_luts = batch_lib.build_chunk_luts(
                         item.hists.cpu().numpy())
                     if cuda:
-                        item.z.record_stream(compute_s)
+                        item.z.record_stream(compute.stream)
                     payloads, bits = batch_lib.dispatch_optimized_encode(
                         item.z, dc_luts, ac_luts, config, geom, capacity)
                 else:
                     if cuda:
-                        item.rgb.record_stream(compute_s)
+                        item.rgb.record_stream(compute.stream)
                     payloads, bits = batch_lib.dispatch_uploaded(
                         item.rgb, config, geom, capacity)
-                done = None
-                if cuda:
-                    done = torch.cuda.Event()
-                    done.record(compute_s)
-                write_q.put((item.paths, item.rgb, geom, capacity, payloads,
-                             bits, specs_list, done))
-                del item, payloads, bits
+                done = compute.ready()
+            write_q.put((item.share, item.paths, item.rgb, geom, capacity,
+                         payloads, bits, specs_list, done))
+            del item, payloads, bits
     finally:
         stop.set()
         # Unblock a loader stuck on a full queue before joining it (the
@@ -324,7 +330,8 @@ def encode_paths(
         wt.join()
         lt.join()
         if cuda:
-            torch.cuda.synchronize(device)
+            for d in set(targets):
+                torch.cuda.synchronize(d)
     if errors:
         raise errors[0]
     stats.seconds = time.perf_counter() - t0

@@ -1,49 +1,55 @@
 """Band-tiled single-image encode: MCU-row bands, DC predictors chained.
 
-Port of jpeg_encoder_tpu/parallel/tiled.py to one card. The JAX package
-splits one image into contiguous MCU-row bands, one per device of a mesh,
-and passes each band's final DC predictors to its successor with one
-ppermute. Here `bands` takes the mesh's place (the mesh size is the band
-count), and the bands are the leading dimension of one launch of each
-kernel:
+Port of jpeg_encoder_tpu/parallel/tiled.py. The JAX package splits one
+image into contiguous MCU-row bands, one per device of a mesh, and passes
+each band's final DC predictors to its successor with one ppermute. Here
+`bands` is the band count and `devices` (a count of cards or a list of
+devices, parallel/devices.py) takes the mesh's place: the bands go in
+contiguous runs (BandRun), one a device, and the bands of a run are the
+leading dimension of one launch of each kernel on its device:
 
-* the band front: the image, zero-padded to bands * band_h rows, goes
-  through pipeline.scan_entries as a (bands, band_h, W, 3) stack, as the
-  batch path stacks images, with the rows at or past the image height
-  zeroed in the Y, Cb and Cr planes (the reference's padding is 0 there,
-  not in RGB, where zero pixels convert to Cb = Cr = 128). The stack's
-  entries, band after band, are those of one image of bands * band_h rows
-  (the stack geometry);
-* the unbroken scan: K4 codes the stack in one launch as rows of one
-  band's entries, row r seeded with band r - 1's final DCs
-  (ops/entropy.final_dc over the stack, on the device) and row 0 with
-  zeros; the image's live entry count makes the padding bands' entries
-  emit nothing (dead entries are always a suffix of the stack). The host
-  splices the rows at bit level (utils/bits.py);
+* the band front: the run's image rows, zero-padded to count * band_h
+  rows, go through pipeline.scan_entries as a (count, band_h, W, 3)
+  stack, as the batch path stacks images, with the rows at or past the
+  image height zeroed in the Y, Cb and Cr planes (the reference's padding
+  is 0 there, not in RGB, where zero pixels convert to Cb = Cr = 128). The
+  stack's entries, band after band, are those of one image of count *
+  band_h rows (the stack geometry);
+* the unbroken scan: K4 codes a run's stack in one launch as rows of one
+  band's entries, row r seeded with the final DCs of the band before
+  (ops/entropy.final_dc over the stack, on the device; zeros for the
+  image's first band). The last band of a run hands its final DCs to the
+  next run's device: the ppermute's one hop, a (1, 3) copy on the sending
+  run's stream, awaited by the receiving run's stream (devices.send). The
+  run's live entry count makes the padding bands' entries emit nothing
+  (dead entries are always a suffix, and a run of dead bands does no work
+  at all). The host splices the rows at bit level (utils/bits.py);
 * restart markers: every non-final band holds whole intervals (the band
   size is re-chosen when the even split puts an interval across a band
-  boundary, _aligned_band_rows), so K4 codes every interval of the stack
-  into its own row with its predictors reset, and the host joins the
-  bands' live intervals with RSTn markers: no DC exchange, no splice;
-* optimize: one table set from the statistics of all bands, one
-  symbol_histograms over the stack with the same per-row predictors (the
-  JAX package's psum of per-band histograms), then the encode above with
-  those tables;
+  boundary, _aligned_band_rows), so K4 codes every interval of a run into
+  its own row with its predictors reset, and the host joins the bands'
+  live intervals with RSTn markers: no DC exchange, no splice;
+* optimize: one table set from the statistics of all bands: each run's
+  symbol_histograms with the encode's per-row predictors, summed on the
+  first device (the JAX package's psum), the tables built on the host and
+  copied to every device, then the encode above with them;
 * overflow: a band whose payload (or any of its intervals) overflowed the
-  shared per-band capacity is re-coded alone from its live entries (the
-  front does not run again) up the capacity ladder, with its own
-  predictors; the other bands keep their rows.
+  shared per-band capacity is re-coded alone on its run's device from its
+  live entries (the front does not run again) up the capacity ladder, with
+  its own predictors; the other bands keep their rows.
 
+parallel/multihost.encode_tiled runs the same runs across processes.
 Files are byte-identical to pipeline.encode_array's. As there, the quirk
 geometries (dim % (8 * factor) == 1) and a restart interval that admits no
 band split fall back to encode_array with a RuntimeWarning. Like the JAX
 package's band path (and the batch path), this one does not check
-config.validate. On one card the bands buy nothing but the splice: the
-module is the single-card form of the JAX package's multi-device encode.
+config.validate. Without `devices` every band runs on one device (one run),
+where the bands buy nothing but the splice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -55,6 +61,7 @@ from jpeg_encoder_torch.io import jfif
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.parallel import batch
+from jpeg_encoder_torch.parallel import devices as devices_lib
 from jpeg_encoder_torch.utils.bits import splice_bitstreams
 
 
@@ -133,23 +140,11 @@ def _split_rows(geom: FrameGeometry, bands: int,
     return None
 
 
-def encode_tiled(
-    rgb: np.ndarray,
-    config: EncoderConfig,
-    bands: int,
-    *,
-    device: str | torch.device = "cuda",
-) -> pipeline.EncodeResult:
-    """Encode one (H, W, 3) uint8 image as `bands` MCU-row bands on
-    `device` (the card by default; "cpu" runs the plain versions).
-
-    With config.restart_interval the bands emit DRI/RSTn restart framing:
-    every interval's predictors reset, so no DC chain crosses a band, and
-    assembly is marker concatenation. When the even split misaligns with
-    the interval the band size is re-chosen (_aligned_band_rows); only a
-    geometry with no aligned multi-band split falls back to encode_array,
-    with a warning.
-    """
+def prepare(rgb: np.ndarray, config: EncoderConfig, bands: int):
+    """Check a band encode's operands -> (the image's geometry, MCU rows a
+    band), or (geometry, None) when it falls back to one encode (the
+    quirk geometries, and a restart interval that admits no band split),
+    having said so with a RuntimeWarning."""
     pipeline.check_config(config)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError("expected (H, W, 3) RGB input")
@@ -170,9 +165,9 @@ def encode_tiled(
             "band-local encoding cannot reproduce; falling back to a "
             "single-band encode",
             RuntimeWarning,
-            stacklevel=2,
+            stacklevel=3,
         )
-        return pipeline.encode_array(rgb, config, device=device)
+        return geom, None
     band_rows = _split_rows(geom, bands, restart)
     if band_rows is None:
         warnings.warn(
@@ -181,46 +176,96 @@ def encode_tiled(
             "(every candidate band would put an interval across a band "
             "boundary); falling back to a single-band restart encode",
             RuntimeWarning,
-            stacklevel=2,
+            stacklevel=3,
         )
-        return pipeline.encode_array(rgb, config, device=device)
+    return geom, band_rows
 
-    band_geom = _band_geometry(geom, band_rows * 8 * geom.v_factor)
-    stack_geom = _band_geometry(geom, bands * band_geom.height)
-    z, chained = band_front(rgb, config, geom, bands, band_rows, device)
-    live = geom.num_scan_entries
-    init_dc = chained if restart is None else None
-    specs = luts = None
+
+def encode_tiled(
+    rgb: np.ndarray,
+    config: EncoderConfig,
+    bands: int,
+    *,
+    device: str | torch.device = "cuda",
+    devices=None,
+) -> pipeline.EncodeResult:
+    """Encode one (H, W, 3) uint8 image as `bands` MCU-row bands on
+    `device` (the card by default; "cpu" runs the plain versions), or
+    over `devices` (a count of cards or a list of devices, which may
+    repeat one): the bands then go in contiguous runs, one a device, and
+    the last band of each run hands its final DCs to the next run's first.
+
+    With config.restart_interval the bands emit DRI/RSTn restart framing:
+    every interval's predictors reset, so no DC chain crosses a band, and
+    assembly is marker concatenation. When the even split misaligns with
+    the interval the band size is re-chosen (_aligned_band_rows); only a
+    geometry with no aligned multi-band split falls back to encode_array
+    on the first device, with a warning.
+    """
+    shares = devices_lib.shares(device, devices)
+    geom, band_rows = prepare(rgb, config, bands)
+    if band_rows is None:
+        return pipeline.encode_array(rgb, config, device=shares[0].device)
+    restart = config.restart_interval
+    runs = [(share, run) for share, run in zip(
+        shares, BandRun.split(geom, band_rows, bands, len(shares)))
+        if run.live_entries]
+    fronts = []
+    for share, run in runs:
+        with share.on():
+            fronts.append(run.front(rgb, config, share.device))
+    inits = [None] * len(runs)
+    if restart is None:
+        # The ppermute's one hop: run i's last final DCs to run i + 1.
+        for i, (share, _) in enumerate(runs):
+            incoming = None if i == 0 else devices_lib.send(
+                fronts[i - 1][1][-1:], runs[i - 1][0], share)
+            with share.on():
+                inits[i] = chained(fronts[i][1], incoming)
+    specs = None
+    luts = [None] * len(runs)
     if config.optimize_huffman:
-        # One table set from every band's statistics: rows of a band (or
-        # of an interval) with the encode's predictors.
-        hist = entropy_ops.symbol_histograms(
-            z, stack_geom, restart or band_rows * geom.mcu_cols, init_dc,
-            live_entries=live,
-        )
-        specs, luts = pipeline.optimal_specs_and_luts(hist.cpu().numpy(),
-                                                      z.device)
-    if restart is not None:
-        return _encode_restart(z, geom, config, bands, band_rows, luts,
-                               specs)
+        # One table set from every band's statistics (the psum), summed on
+        # the first share, built on the host and copied to every share.
+        hists = []
+        for (share, run), (z, _), init in zip(runs, fronts, inits):
+            with share.on():
+                hists.append(run.histogram(z, init, restart))
+        first = runs[0][0]
+        total = hists[0]
+        for (share, _), hist in zip(runs[1:], hists[1:]):
+            hist = devices_lib.send(hist, share, first)
+            with first.on():
+                total = total + hist
+        with first.on():
+            specs, host_luts = pipeline.optimal_specs_and_luts(
+                total.cpu().numpy(), "cpu")
+        for i, (share, _) in enumerate(runs):
+            with share.on():
+                luts[i] = tuple(t.to(share.device) for t in host_luts)
+    enqueued = []
+    for (share, run), (z, _), init, tables in zip(runs, fronts, inits, luts):
+        with share.on():
+            enqueued.append(run.encode(z, init, tables, config))
+    pieces = []
+    for (share, run), (z, _), init, tables, out in zip(
+            runs, fronts, inits, luts, enqueued):
+        with share.on():
+            pieces.extend(run.collect(z, *batch.fetch_chunk(*out), init,
+                                      tables, config))
+    return assemble(geom, config, pieces, specs)
 
-    capacity = pipeline.default_capacity_bytes(
-        band_geom, config.capacity_bytes_per_pixel
-    )
-    payloads, bit_lengths = batch.fetch_chunk(*entropy_kernel.encode_entries(
-        z, stack_geom, capacity, init_dc, luts, live_entries=live,
-        entries_per_interval=_band_entries(geom, band_rows),
-    ))
-    chunks = []
-    for i in range(bands):
-        bits = int(bit_lengths[i])
-        if bits <= 8 * capacity:
-            chunks.append((payloads[i], bits))
-        else:
-            # This band overflowed the shared estimate: re-code it alone.
-            chunks.append(_retry_band(z, geom, band_rows, i, capacity,
-                                      init_dc[i], luts))
-    spliced, total_bits = splice_bitstreams(chunks)
+
+def assemble(geom, config, pieces, specs) -> pipeline.EncodeResult:
+    """The file from every band's (payload, bits) in order: the unbroken
+    scan's bands spliced at bit level, or the restart intervals joined
+    with RSTn markers."""
+    restart = config.restart_interval
+    if restart is not None:
+        return pipeline.restart_result(
+            geom, [p for p, _ in pieces], [b for _, b in pieces], restart,
+            config.quality, dht_specs=specs)
+    spliced, total_bits = splice_bitstreams(pieces)
     return pipeline.EncodeResult(
         file_bytes=jfif.assemble(geom, spliced, quality=config.quality,
                                  dht_specs=specs),
@@ -230,82 +275,169 @@ def encode_tiled(
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class BandRun:
+    """Bands first .. first + count - 1 of an image of geometry `geom`
+    split into bands of band_rows MCU rows: the work of one device (or
+    process), on the device its caller makes current."""
+
+    geom: FrameGeometry
+    band_rows: int
+    first: int
+    count: int
+
+    @classmethod
+    def split(cls, geom, band_rows, bands, parts) -> list[BandRun]:
+        """`bands` bands in contiguous runs over at most `parts` devices
+        (devices.split)."""
+        return [cls(geom, band_rows, lo, hi - lo)
+                for lo, hi in devices_lib.split(bands, parts)]
+
+    @property
+    def band_geom(self) -> FrameGeometry:
+        return _band_geometry(self.geom, self.band_rows * 8 *
+                              self.geom.v_factor)
+
+    @property
+    def stack_geom(self) -> FrameGeometry:
+        """The geometry of the run's bands stacked: one image of count
+        bands' rows."""
+        return _band_geometry(self.geom, self.count * self.band_geom.height)
+
+    @property
+    def band_entries(self) -> int:
+        return _band_entries(self.geom, self.band_rows)
+
+    @property
+    def live_entries(self) -> int:
+        """Entries of the run in the image (0 for a run of dead bands,
+        which are a suffix of the bands)."""
+        return max(0, min(self.geom.num_scan_entries
+                          - self.first * self.band_entries,
+                          self.count * self.band_entries))
+
+    def front(self, rgb, config, device):
+        """band_front over this run on `device`."""
+        return band_front(rgb, config, self.geom, self.band_rows,
+                          self.first, self.count, device)
+
+    def histogram(self, z, init_dc, restart):
+        """(4, 256) symbol counts of the run's entries, its rows (bands,
+        or restart intervals) framed and seeded as the encode's."""
+        return entropy_ops.symbol_histograms(
+            z, self.stack_geom, restart or self.band_rows * self.geom.mcu_cols,
+            init_dc, live_entries=self.live_entries)
+
+    def capacity(self, config) -> int:
+        """The shared capacity of a band (of an interval with restart
+        markers)."""
+        if config.restart_interval is None:
+            return pipeline.default_capacity_bytes(
+                self.band_geom, config.capacity_bytes_per_pixel)
+        return pipeline.restart_default_capacity_bytes(
+            self.band_geom, config.restart_interval,
+            config.capacity_bytes_per_pixel)
+
+    def encode(self, z, init_dc, luts, config):
+        """Enqueue one K4 launch over the run: a row a band seeded from
+        its init_dc row, or, with restart markers, a row an interval with
+        its predictors reset. -> (payloads, bits) on z's device."""
+        restart = config.restart_interval
+        epi = (self.band_entries if restart is None
+               else entropy_ops.entries_per_interval(self.stack_geom, restart))
+        return entropy_kernel.encode_entries(
+            z, self.stack_geom, self.capacity(config), init_dc, luts,
+            live_entries=self.live_entries, entries_per_interval=epi)
+
+    def collect(self, z, payloads, bit_lengths, init_dc, luts, config):
+        """The run's fetched rows -> [(payload, bits)] in scan order: one a
+        band (dead ones emit 0 bits), or one a live restart interval. A
+        band whose payload (or any interval's) overflowed the shared
+        capacity is re-coded alone on z's device."""
+        geom, band_rows, restart = self.geom, self.band_rows, (
+            config.restart_interval)
+        capacity = self.capacity(config)
+        pieces = []
+        if restart is None:
+            for j in range(self.count):
+                bits = int(bit_lengths[j])
+                if bits <= 8 * capacity:
+                    pieces.append((payloads[j], bits))
+                else:
+                    # This band overflowed the shared estimate: re-code it.
+                    pieces.append(_retry_band(
+                        z, geom, band_rows, self.first + j, capacity,
+                        init_dc[j], luts, self.first))
+            return pieces
+        # Non-final bands hold whole intervals, so band j's intervals are
+        # rows j * band_mcus / restart on; a single live band starts at 0.
+        per_band = band_rows * geom.mcu_cols // restart
+        for j in range(self.count):
+            idx = self.first + j
+            n_live = -(-_live_mcu_rows(geom, band_rows, idx) * geom.mcu_cols
+                       // restart)
+            rows = range(j * per_band, j * per_band + n_live)
+            if n_live and int(bit_lengths[rows.start:rows.stop].max()) > (
+                    8 * capacity):
+                pieces.extend(_retry_band_restart(
+                    z, geom, band_rows, idx, capacity, restart, luts,
+                    self.first))
+            else:
+                pieces.extend((payloads[r], int(bit_lengths[r]))
+                              for r in rows)
+        return pieces
+
+
 def band_front(
     rgb: np.ndarray,
     config: EncoderConfig,
     geom: FrameGeometry,
-    bands: int,
     band_rows: int,
+    first: int,
+    count: int,
     device: str | torch.device,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The band front on `device`: rgb, zero-padded to bands bands of
-    band_rows MCU rows, through pipeline.scan_entries as a (bands, band_h,
-    W, 3) stack, its rows at or past the image height zeroed in the Y, Cb
-    and Cr planes. -> (the stack's (bands * E_band, 64) scan entries, band
-    after band; (bands, 3) int32 initial DC predictors: zeros for band 0,
-    then the final DCs of the band before, ops/entropy.final_dc)."""
+    """The band front of bands first .. first + count - 1 on `device`: the
+    image rows they cover, zero-padded to count bands of band_rows MCU
+    rows, through pipeline.scan_entries as a (count, band_h, W, 3) stack,
+    its rows at or past the image height zeroed in the Y, Cb and Cr
+    planes. -> (the stack's (count * E_band, 64) scan entries, band after
+    band; (count, 3) int32 final DC predictors of each band,
+    ops/entropy.final_dc)."""
     height, width = rgb.shape[:2]
     band_geom = _band_geometry(geom, band_rows * 8 * geom.v_factor)
     band_h = band_geom.height
-    stack = torch.zeros((bands * band_h, width, 3), dtype=torch.uint8,
+    top = first * band_h
+    rows = max(0, min(height - top, count * band_h))
+    stack = torch.zeros((count * band_h, width, 3), dtype=torch.uint8,
                         device=device)
-    stack[:height].copy_(
-        torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8)))
+    stack[:rows].copy_(torch.from_numpy(
+        np.ascontiguousarray(rgb[top : top + rows], dtype=np.uint8)))
     z, coeffs = pipeline.scan_entries(
-        stack.reshape(bands, band_h, width, 3), band_geom,
+        stack.reshape(count, band_h, width, 3), band_geom,
         config.dct_algorithm, config.quality, fast_dct=config.fast_dct,
-        bin_dct_descale=config.bin_dct_descale, live_rows=height,
+        bin_dct_descale=config.bin_dct_descale, live_rows=rows,
     )
-    lasts = entropy_ops.final_dc(*coeffs, band_geom)
-    return z, torch.cat([torch.zeros_like(lasts[:1]), lasts[:-1]])
+    return z, entropy_ops.final_dc(*coeffs, band_geom)
 
 
-def _encode_restart(z, geom, config, bands, band_rows, luts, specs):
-    """The restart-framed encode of the band stack: K4 codes every
-    interval of the stack into its own row, then the bands' live
-    intervals, in order, go to pipeline.restart_result. A band with an
-    overflowing interval is re-coded alone (_retry_band_restart).
-
-    Non-final bands hold whole intervals, so band i's intervals are rows
-    i * band_mcus / restart on; a single live band starts at row 0. The
-    stack's intervals are the image's: its live entries are a prefix."""
-    restart = config.restart_interval
-    band_geom = _band_geometry(geom, band_rows * 8 * geom.v_factor)
-    stack_geom = _band_geometry(geom, bands * band_geom.height)
-    capacity = pipeline.restart_default_capacity_bytes(
-        band_geom, restart, config.capacity_bytes_per_pixel
-    )
-    payloads, bit_lengths = batch.fetch_chunk(*entropy_kernel.encode_entries(
-        z, stack_geom, capacity, luts=luts,
-        live_entries=geom.num_scan_entries,
-        entries_per_interval=entropy_ops.entries_per_interval(stack_geom,
-                                                               restart),
-    ))
-    per_band = band_rows * geom.mcu_cols // restart
-    segments, bits_list = [], []
-    for i in range(bands):
-        n_live = -(-_live_mcu_rows(geom, band_rows, i) * geom.mcu_cols
-                   // restart)
-        rows = range(i * per_band, i * per_band + n_live)
-        if n_live and int(bit_lengths[rows.start:rows.stop].max()) > (
-                8 * capacity):
-            band_segments = _retry_band_restart(z, geom, band_rows, i,
-                                                capacity, restart, luts)
-        else:
-            band_segments = [(payloads[r], int(bit_lengths[r])) for r in rows]
-        for payload, bits in band_segments:
-            segments.append(payload)
-            bits_list.append(bits)
-    return pipeline.restart_result(geom, segments, bits_list, restart,
-                                   config.quality, dht_specs=specs)
+def chained(lasts: torch.Tensor, incoming: torch.Tensor | None = None):
+    """(count, 3) final DCs of a run's bands -> their (count, 3) initial
+    predictors: `incoming` (the final DCs of the band before the run;
+    zeros for the image's first band) for the first, then each band's
+    predecessor's."""
+    if incoming is None:
+        incoming = torch.zeros_like(lasts[:1])
+    return torch.cat([incoming.reshape(1, 3), lasts[:-1]])
 
 
-def _live_band(z, geom, band_rows, idx):
-    """Band idx's live entries (a view of z) and their geometry: the live
-    prefix of a band's entries is the scan of its live MCU rows."""
+def _live_band(z, geom, band_rows, idx, first=0):
+    """Band idx's live entries (a view of z, the entries of the run that
+    starts at band `first`) and their geometry: the live prefix of a
+    band's entries is the scan of its live MCU rows."""
     live_rows = _live_mcu_rows(geom, band_rows, idx)
     live_geom = _band_geometry(geom, live_rows * 8 * geom.v_factor)
-    start = idx * _band_entries(geom, band_rows)
+    start = (idx - first) * _band_entries(geom, band_rows)
     return z[start : start + live_geom.num_scan_entries], live_geom
 
 
@@ -317,10 +449,12 @@ def _retry_band(
     capacity: int,
     init_dc: torch.Tensor,
     luts: tuple | None = None,
+    first: int = 0,
 ) -> tuple[np.ndarray, int]:
-    """Re-code band idx's live entries alone, from its own (3,) init_dc,
-    up the capacity ladder from the rung above the one that overflowed."""
-    z_band, live_geom = _live_band(z, geom, band_rows, idx)
+    """Re-code band idx's live entries alone (z: the entries of the run
+    that starts at band `first`), from its own (3,) init_dc, up the
+    capacity ladder from the rung above the one that overflowed."""
+    z_band, live_geom = _live_band(z, geom, band_rows, idx, first)
 
     def encode(cap):
         payload, bits = entropy_kernel.encode_entries(
@@ -344,10 +478,12 @@ def _retry_band_restart(
     capacity: int,
     restart: int,
     luts: tuple | None = None,
+    first: int = 0,
 ) -> list[tuple[np.ndarray, int]]:
-    """Re-code band idx's restart intervals alone, up the capacity ladder
-    from the rung above the one that overflowed."""
-    z_band, live_geom = _live_band(z, geom, band_rows, idx)
+    """Re-code band idx's restart intervals alone (z: the entries of the
+    run that starts at band `first`), up the capacity ladder from the rung
+    above the one that overflowed."""
+    z_band, live_geom = _live_band(z, geom, band_rows, idx, first)
     epi = entropy_ops.entries_per_interval(live_geom, restart)
 
     def encode(cap):

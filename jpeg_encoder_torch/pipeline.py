@@ -34,6 +34,7 @@ from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.ops import color, sample
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.ops.entropy import worst_case_capacity_bytes
+from jpeg_encoder_torch.parallel.devices import resolve_device
 
 
 def default_capacity_bytes(
@@ -467,6 +468,7 @@ def encode_array(
         raise ValueError("return_coeffs is not supported with restart markers")
     if restart is not None:
         check_restart_geometry(geom)
+    device = resolve_device(device)
     device_rgb = torch.tensor(np.asarray(rgb, dtype=np.uint8), device=device)
     front = dict(fast_dct=config.fast_dct,
                  bin_dct_descale=config.bin_dct_descale)

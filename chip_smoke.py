@@ -56,7 +56,17 @@ encodes, and the end-to-end encodes, encode_tiled against encode_array
 operations), K4 with one init_dc a row against the (3,) form, and each
 dataset process's start-up apart from its steady files/s, in one process
 and in two, one share against two and four (host and device-busy ms per
-image) and each gloo collective of the band encode across processes. It
+image) and each gloo collective of the band encode across processes. The
+bench path runs every measurement module (jpeg_encoder_torch/bench) in this
+process at reduced sizes, between a reset and a read of the launch counts
+(a call captured into a CUDA graph counts once): the throughput line, the
+ratio x algorithm matrix and two cells, the 4K band program, datasets of
+16 and 8 (optimized) 1080p files, the batch curve and four shares, every
+kernel by CUDA-graph replay, and the parity sweeps (all 2^24 colour
+triples, 24 corpus and 24 geometry files, each against the oracle); it
+fails unless each exits 0 with its JSON line and every sweep is exact.
+The kernel timings carry a CUDA-graph replay column (bench/timing.graph_ms)
+beside the profiler's device-busy time, at 1080p and 4K. It
 also prints each kernel's
 registers, spills and shared memory as ptxas reports them, the
 torch.matmul yardstick of K2 by events and device-busy time beside K2's
@@ -91,6 +101,10 @@ import time
 import numpy as np
 import torch
 
+from jpeg_encoder_torch.bench import timing
+from jpeg_encoder_torch.bench.kernels import front_planes, kernel_bounds
+from jpeg_encoder_torch.bench.timing import variants
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 REPS = 20  # timed repetitions (median reported)
 RATIOS = ((4, 2, 0), (4, 2, 2), (4, 4, 4))
@@ -100,14 +114,6 @@ INTERVALS = (1, 7, 120, 10000)  # restart intervals, MCUs
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()].strip()
 
 
 def cuda_ms(fn, reps: int = REPS) -> float:
@@ -184,17 +190,6 @@ def host_ms(fn, reps: int = 10) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
-
-
-def front_planes(rgb: torch.Tensor, geom):
-    """The main path's colour, pad and subsample stages (plain ops)."""
-    from jpeg_encoder_torch.ops import color, sample
-
-    y, cb, cr = color.rgb_to_ycbcr(rgb)
-    y = sample.pad_plane(y, geom)
-    cb = sample.subsample_plane(sample.pad_plane(cb, geom), geom)
-    cr = sample.subsample_plane(sample.pad_plane(cr, geom), geom)
-    return y, cb, cr
 
 
 def adversarial_entries(geom) -> np.ndarray:
@@ -1083,20 +1078,6 @@ def k4_band_phase(cuda, images_1080) -> float:
               "kernel == plain (Annex K, optimal tables, 8 B rows)",
               flush=True)
     return float(worst)
-
-
-def variants(images: list[np.ndarray], count: int) -> np.ndarray:
-    """count distinct images from a few: rolled, flipped, channel-swapped."""
-    out = []
-    for k in range(count):
-        rgb = images[k % len(images)]
-        j = k // len(images)
-        if j % 2:
-            rgb = rgb[:, ::-1]
-        if j % 4 >= 2:
-            rgb = rgb[::-1, :, ::-1]
-        out.append(np.roll(rgb, 97 * j, axis=1))
-    return np.ascontiguousarray(np.stack(out))
 
 
 def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
@@ -2062,10 +2043,79 @@ def multicard_phase(cuda, images_1080, images_4k, card, tmp) -> dict:
     return counts
 
 
+def bench_runs(tmp: str, launches: dict) -> list[tuple]:
+    """(label, module, argv, JSON keys its last line must have) of every
+    bench module at reduced sizes: windows of 0.1 s, a dataset of 16 (and
+    8 optimized) 1080p files, the parity sweep in all three modes at full
+    size. Scaling runs the batch curve and four shares of the card (its
+    weak-scaling loop; on one card its default is that loop's first row)."""
+    short = ["--min-seconds", "0.1"]
+    dataset = ["--images", "16", "--width", "1920", "--height", "1080",
+               "--dir", os.path.join(tmp, "dataset"), "--verify", "4"]
+    return [
+        ("bench", "__main__", short, ("metric", "value", "vs_baseline")),
+        ("matrix", "matrix", short, ("rows",)),
+        ("matrix cell fast", "matrix", short + ["--cell", "4:2:0", "fast"],
+         ("value",)),
+        ("matrix cell restart optimize", "matrix",
+         short + ["--cell", "4:2:2", "bin", "restart=120", "optimize"],
+         ("value", "two_pass")),
+        ("tiled", "tiled", short, ("rows", "encode_core")),
+        ("dataset", "dataset", dataset, ("value", "device_hbm_peak_mb")),
+        ("dataset optimize", "dataset",
+         dataset[:1] + ["8"] + dataset[2:] + ["--optimize"],
+         ("value", "verified_byte_identical")),
+        ("scaling batch curve", "scaling", short + ["--batch-curve"],
+         ("rows",)),
+        ("scaling shares", "scaling", short + ["--shares", "4"], ("rows",)),
+        ("kernels", "kernels", ["--launches", json.dumps(launches)],
+         ("kernels", "stages", "matmul_ms")),
+        ("parity color", "parity", ["--color"], ("triples", "mismatched")),
+        ("parity corpus", "parity", ["--corpus"], ("cases", "identical")),
+        ("parity geometry", "parity", [], ("cases", "identical")),
+    ]
+
+
+def bench_phase(cuda, launches: dict, tmp: str) -> dict:
+    """Every bench module (jpeg_encoder_torch/bench) in this process
+    through its main(argv) on the card: exit code 0 and a last line of
+    JSON with its keys, or fail; the parity sweeps must find 0 of 2^24
+    colour triples and 24 of 24 files in each sweep byte-identical.
+    Returns each run's JSON line."""
+    import contextlib
+    import importlib
+    import io
+
+    lines = {}
+    for label, module, argv, keys in bench_runs(tmp, launches):
+        mod = importlib.import_module(f"jpeg_encoder_torch.bench.{module}")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = mod.main([*argv, "--device", str(cuda)])
+        seconds = time.perf_counter() - t0
+        text = out.getvalue().strip()
+        print(text, flush=True)
+        check(rc == 0, f"bench {label} exited {rc}")
+        line = json.loads(text.splitlines()[-1])
+        check(all(k in line for k in keys),
+              f"bench {label}: the JSON line lacks one of {keys}: {line}")
+        print(f"bench {label}: exit 0 in {seconds:.1f} s", flush=True)
+        lines[label] = line
+    check(lines["parity color"]["triples"] == 2 ** 24
+          and lines["parity color"]["mismatched"] == 0,
+          f"colour parity: {lines['parity color']}")
+    for sweep in ("parity corpus", "parity geometry"):
+        check(lines[sweep]["cases"] == lines[sweep]["identical"] == 24,
+              f"{sweep}: {lines[sweep]}")
+    return lines
+
+
 def interval_pairs(z, geom):
     """(name, kernel, plain) of K4 in interval mode (restart every 120 MCUs,
     one MCU row at 1080p, and every MCU) and of K5 on the assemble tier's
-    rows for one MCU row and for the unbroken scan, on z's device."""
+    row of the unbroken scan, on z's device (bench/kernels.kernel_calls
+    has K5 at restart 120)."""
     import functools
 
     from jpeg_encoder_torch import pipeline, scan
@@ -2083,151 +2133,92 @@ def interval_pairs(z, geom):
                               entries_per_interval=epi),
             functools.partial(entropy_ops.encode_entries, z, geom, cap,
                               entries_per_interval=epi)))
-    for interval in (120, None):
-        epi = (geom.num_scan_entries if interval is None
-               else entropy_ops.entries_per_interval(geom, interval))
-        slot_bits, slot_lens = entropy_ops.symbolize(
-            z, geom.h_factor * geom.v_factor, entries_per_interval=epi)
-        words, offsets, row_bits = scan.assemble_operands(
-            slot_bits, slot_lens, epi)
-        cap = (pipeline.default_capacity_bytes(geom) if interval is None
-               else pipeline.restart_default_capacity_bytes(geom, interval))
-        pairs.append((
-            "pack" if interval else "pack one row",
-            functools.partial(pack_kernel.assemble_bitstream, words, offsets,
-                              cap),
-            functools.partial(entropy_ops.assemble_bitstream, words, offsets,
-                              cap)))
+    epi = geom.num_scan_entries
+    slot_bits, slot_lens = entropy_ops.symbolize(
+        z, geom.h_factor * geom.v_factor, entries_per_interval=epi)
+    words, offsets, _ = scan.assemble_operands(slot_bits, slot_lens, epi)
+    cap = pipeline.default_capacity_bytes(geom)
+    pairs.append((
+        "pack one row",
+        functools.partial(pack_kernel.assemble_bitstream, words, offsets, cap),
+        functools.partial(entropy_ops.assemble_bitstream, words, offsets,
+                          cap)))
     return pairs
-
-
-# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM bytes
-# a second, float32 FLOP a second outside the tensor cores (a fused
-# multiply-add counts 2), dense bf16 FLOP a second on the tensor cores.
-# Without FMAs the FP32 pipes issue half that many operations; INT32 has
-# half the FP32 lanes, so a quarter of the FLOP rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_TENSOR_FLOPS = 989e12
-FP32_ISSUE_OPS = FP32_FLOPS / 2
-INT32_OPS = FP32_FLOPS / 4
-# Operations per 8x8 block: RealDCT, the least work its function needs, 8
-# first products px[k] * B[u][x_k] a step (one per u, shared by the 8
-# coefficients of that u: the same operands give the same rounded product),
-# 64 second products and 64 adds a step, over 64 steps, then a scale
-# multiply and a divide a coefficient; binDCT, 16 8-point lifts of 43
-# integer operations, 64 level shifts, and 64 divides by invariant integers
-# of MAGIC_DIVIDE_OPS each ((x + mulhi(m, x)) >> s) - (x >> 31)); --fast-dct,
-# the three bf16 split products of 64 x 64 multiply-adds (FAST_BLOCK_FLOPS,
-# at BF16_TENSOR_FLOPS).
-REALDCT_BLOCK_OPS = 8 * 64 + 64 * 64 * 2 + 2 * 64
-MAGIC_DIVIDE_OPS = 5
-BINDCT_BLOCK_OPS = 16 * 43 + 64 + 64 * MAGIC_DIVIDE_OPS
-FAST_BLOCK_FLOPS = 3 * 2 * 64 * 64
-
-
-def bound(num_bytes: int, ops: int = 0, rate: float = 1.0) -> tuple:
-    """(least ms the card could take, "bytes" or "operations"): the larger
-    of the bytes over the memory rate and the operations over their peak."""
-    t_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
     """Kernel vs plain times (CUDA events around each call, and the
     device-busy time inside it), the device time of each encode stage, and
     the end-to-end time per image, at 1080p and 4K (4:2:0, corpus
-    content). Returns the 1080p kernel and plain event times, the kernels'
-    device-busy times, each kernel's bound on the same inputs, and the time
-    of one PyTorch call computing the same function where there is one
-    (K2's matmul), by events and device-busy."""
+    content), each kernel also by CUDA-graph replay (bench/timing.graph_ms:
+    its device work alone, no host, no dropped events). Returns the 1080p
+    kernel and plain event times, the kernels' device-busy and graph times,
+    each kernel's bound on the same inputs, and the time of one PyTorch
+    call computing the same function where there is one (K2's matmul), by
+    events, device-busy and graph."""
     import dataclasses
 
+    from jpeg_encoder_torch.bench import kernels as bench_kernels
     from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
-    from jpeg_encoder_torch.ops import dct as dct_ops
     from jpeg_encoder_torch.ops import entropy as entropy_ops
-    from jpeg_encoder_torch.ops import sample
 
     config = EncoderConfig()
     bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
     fast = EncoderConfig(fast_dct=True)
-    times, busy = {}, {}
+    times, busy, graph = {}, {}, {}
     for label, rgb in (
         ("1920x1080", next(iter(images_1080.values()))),
         ("3840x2160", next(iter(images_4k.values()))),
     ):
-        geom = config.geometry(rgb.shape[1], rgb.shape[0])
-        rgb_dev = torch.from_numpy(rgb).to(cuda)
-        planes = front_planes(rgb_dev, geom)
-        coeffs = dct_kernel.real_dct_quant_planes_zigzag(*planes)
-        z = entropy_ops.marshal_scan_inputs(*coeffs, geom)
-        cap = pipeline.default_capacity_bytes(geom)
-        y_blocks = sample.blockify(planes[0]).contiguous()
-        block_pairs_1080 = [
-            ("realdct_blocks",
-             lambda: dct_kernel.real_dct_quant_zigzag(y_blocks, True),
-             lambda: dct_ops.real_dct_quant_zigzag(y_blocks, True)),
-            ("bindct_blocks",
-             lambda: dct_kernel.bin_dct_quant_zigzag(y_blocks, True),
-             lambda: dct_ops.bin_dct_quant_zigzag(y_blocks, True)),
-        ]
+        ops = bench_kernels.Operands.build(rgb, cuda)
+        geom, rgb_dev, planes, coeffs, z, cap = (
+            ops.geom, ops.rgb, ops.planes, ops.coeffs, ops.z, ops.cap)
         if label == "1920x1080":
-            bounds = kernel_bounds(geom, planes, z, cap, y_blocks)
+            bounds = kernel_bounds(geom, planes, z, cap, ops.y_blocks)
             library = dict.fromkeys(bounds)
             library_busy = dict.fromkeys(bounds)
-            shifted = (torch.cat([sample.blockify(p) for p in planes])
-                       .to(torch.int16) - 128).to(torch.float32)
-            kzz = dct_ops.fast_device_constant(cuda)
-            matmul = lambda: torch.matmul(shifted, kzz.T)
+            library_graph = dict.fromkeys(bounds)
+            matmul, shape = bench_kernels.matmul_call(ops)
             library["fastdct"] = cuda_ms(matmul)
             library_busy["fastdct"] = busy_ms(matmul)
-            print(f"time library torch.matmul ({shifted.shape[0]}, 64) x "
+            library_graph["fastdct"] = timing.graph_ms(matmul, cuda)
+            print(f"time library torch.matmul ({shape[0]}, 64) x "
                   f"(64, 64) f32, TF32 off (K2's product): events "
                   f"{library['fastdct']:.4f} ms, device-busy "
-                  f"{fmt(library_busy['fastdct'])} ms ({card})", flush=True)
+                  f"{fmt(library_busy['fastdct'])} ms, graph "
+                  f"{library_graph['fastdct']:.4f} ms ({card})", flush=True)
             for _ in range(3):  # an empty trace is retried, as in busy_ms
-                ops = device_ops(lambda: entropy_kernel.encode_entries(
+                k4_ops = device_ops(lambda: entropy_kernel.encode_entries(
                     z, geom, cap))
-                count = sum(c for _, c, _ in ops)
+                count = sum(c for _, c, _ in k4_ops)
                 if count:
                     break
             check(0 < count <= 2, "one K4 call ran other than the memset and "
-                  f"one kernel: {ops}")
+                  f"one kernel: {k4_ops}")
             print(f"K4 device operations per call, 1920x1080 4:2:0 unbroken: "
                   f"{count:g} (" + "; ".join(f"{name[:50]} x{c:g}"
-                                              for name, c, _ in ops)
+                                              for name, c, _ in k4_ops)
                   + f") ({card})", flush=True)
 
         # Turns: plain, kernel, kernel, plain; each figure is the mean of
         # the two runs' medians.
-        for name, kernel, plain in [
-            ("realdct",
-             lambda: dct_kernel.real_dct_quant_planes_zigzag(*planes),
-             lambda: dct_ops.real_dct_quant_planes_zigzag(*planes)),
-            ("entropy",
-             lambda: entropy_kernel.encode_entries(z, geom, cap),
-             lambda: entropy_ops.encode_entries(z, geom, cap)),
-            ("bindct",
-             lambda: dct_kernel.bin_dct_quant_planes_zigzag(*planes),
-             lambda: dct_ops.bin_dct_quant_planes_zigzag(*planes)),
-            ("fastdct",
-             lambda: dct_kernel.real_dct_fast_planes_zigzag(*planes),
-             lambda: dct_ops.real_dct_fast_planes_zigzag(*planes)),
-        ] + (interval_pairs(z, geom) + block_pairs_1080
-             if label == "1920x1080" else []):
+        for name, kernel, plain in (bench_kernels.kernel_calls(ops)
+                                    + interval_pairs(z, geom)):
             if label == "1920x1080":
                 KERNEL_CALLS[name] = kernel
             p1, k1, k2, p2 = (cuda_ms(f) for f in (plain, kernel, kernel, plain))
             times.setdefault(name, ((k1 + k2) / 2, (p1 + p2) / 2))
             kernel_busy = busy_ms(kernel)
             busy.setdefault(name, kernel_busy)  # 1080p first
+            kernel_graph = timing.graph_ms(kernel, cuda)
+            graph.setdefault(name, kernel_graph)
             print(f"time {name} {label} 4:2:0: kernel {(k1 + k2) / 2:.4f} ms, "
                   f"plain {(p1 + p2) / 2:.4f} ms; device-busy kernel "
-                  f"{fmt(kernel_busy)} ms, plain {fmt(busy_ms(plain))} ms "
+                  f"{fmt(kernel_busy)} ms, plain {fmt(busy_ms(plain))} ms; "
+                  f"graph kernel {kernel_graph:.4f} ms "
                   f"({card})", flush=True)
 
         cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
@@ -2295,7 +2286,7 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
                                                  None))
     print(f"time host restart_result 1920x1080 4:2:0 restart 1 "
           f"({len(bit_list)} segments): {ms:.3f} ms", flush=True)
-    return times, busy, bounds, library, library_busy
+    return times, busy, graph, bounds, library, library_busy, library_graph
 
 
 KERNEL_CALLS = {}  # timing name -> its 1080p kernel call (timing_phase)
@@ -2352,42 +2343,6 @@ def parent_phase(parent: str, cuda, card) -> None:
                       f"({card})", flush=True)
 
 
-def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
-    """Each kernel's bound on the inputs its timing uses at 1080p 4:2:0
-    (every input byte read once, every output byte written once)."""
-    from jpeg_encoder_torch import pipeline, scan
-    from jpeg_encoder_torch.ops import entropy as entropy_ops
-
-    n = sum(p.numel() for p in planes) // 64
-    plane_bytes = sum(p.numel() for p in planes) + n * 64 * 2
-    n_y = y_blocks.shape[0]
-    epi = entropy_ops.entries_per_interval(geom, 120)
-    rows = -(-geom.num_scan_entries // epi)
-    cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
-    slot_bits, slot_lens = entropy_ops.symbolize(
-        z, geom.h_factor * geom.v_factor, entries_per_interval=epi)
-    pack_row_bits = scan.assemble_operands(slot_bits, slot_lens, epi)[2]
-    bounds = {
-        "realdct": bound(plane_bytes, n * REALDCT_BLOCK_OPS, FP32_ISSUE_OPS),
-        "fastdct": bound(plane_bytes, n * FAST_BLOCK_FLOPS,
-                         BF16_TENSOR_FLOPS),
-        "bindct": bound(plane_bytes, n * BINDCT_BLOCK_OPS, INT32_OPS),
-        # z in, the two (2, 256) tables, one row of cap bytes and its count.
-        "entropy": bound(z.numel() * 2 + 4096 + cap + 4),
-        # K5 at restart 120 (timing's "pack"): 8 bytes of offset an entry
-        # and the live words in (a row's bit count over 32, rounded up: the
-        # words past an entry's bits are zero and need not be read), one
-        # row of cap120 bytes per interval out.
-        "pack": bound(rows * epi * 8 + int(((pack_row_bits + 31) // 32).sum())
-                      * 4 + rows * cap120),
-        "realdct_blocks": bound(n_y * 64 * 5, n_y * REALDCT_BLOCK_OPS,
-                                FP32_ISSUE_OPS),
-        "bindct_blocks": bound(n_y * 64 * 5, n_y * BINDCT_BLOCK_OPS,
-                               INT32_OPS),
-    }
-    return bounds
-
-
 def all_kernels():
     """Every kernel of the port: K1 realdct, K4 entropy, K3 bindct, K2
     fastdct, K5 pack, K6a/b realdct_blocks, K6c bindct_blocks."""
@@ -2439,7 +2394,7 @@ def main() -> int:
     from jpeg_encoder_torch.kernels import _build
 
     cuda = torch.device("cuda", torch.cuda.current_device())
-    card = card_line()
+    card = timing.card_line(cuda)
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(cuda)}", flush=True)
@@ -2510,17 +2465,31 @@ def main() -> int:
                                            card, tmp))
     phase_s["multicard"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    times, busy, bounds, library, library_busy = timing_phase(
-        cuda, images_1080, images_4k, card)
+    main_launches = {k.name: sum(c[k.name] for c in path_counts)
+                     for k in all_kernels()}
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
+        # Its launches are the timing windows' (a kernel captured into a
+        # CUDA graph counts once, at capture): read and checked, but not
+        # added to the main paths' launches of the kernels line.
+        counted("bench", lambda: bench_phase(cuda, main_launches, tmp)
+                and None, [k.name for k in all_kernels()])
+    phase_s["bench"] = time.perf_counter() - t0
+    print(f"bench phase: {phase_s['bench']:.1f} s wall ({card})", flush=True)
+    t0 = time.perf_counter()
+    times, busy, graph, bounds, library, library_busy, library_graph = (
+        timing_phase(cuda, images_1080, images_4k, card))
     phase_s["timing"] = time.perf_counter() - t0
     if args.parent:
         t0 = time.perf_counter()
         parent_phase(args.parent, cuda, card)
         phase_s["parent"] = time.perf_counter() - t0
-    print(f"K2 fastdct 1920x1080 4:2:0 device-busy {fmt(busy['fastdct'])} ms "
-          f"vs torch.matmul (its product alone) {fmt(library_busy['fastdct'])}"
-          f" ms; mismatch rates: " + " | ".join(FAST_RATES) + f" ({card})",
-          flush=True)
+    print(f"K2 fastdct 1920x1080 4:2:0 device-busy {fmt(busy['fastdct'])} ms, "
+          f"graph {graph['fastdct']:.4f} ms vs torch.matmul (its product "
+          f"alone) {fmt(library_busy['fastdct'])} ms, graph "
+          f"{library_graph['fastdct']:.4f} ms: K2 is "
+          f"{'slower' if graph['fastdct'] > library_graph['fastdct'] else 'not slower'}"
+          " by graph replay; mismatch rates: " + " | ".join(FAST_RATES)
+          + f" ({card})", flush=True)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                         phase_s.items()) + f" ({card})",
           flush=True)

@@ -413,10 +413,24 @@ def band_front(
                         device=device)
     stack[:rows].copy_(torch.from_numpy(
         np.ascontiguousarray(rgb[top : top + rows], dtype=np.uint8)))
+    return stack_front(stack, config, band_geom, rows)
+
+
+def stack_front(
+    stack: torch.Tensor,
+    config: EncoderConfig,
+    band_geom: FrameGeometry,
+    live_rows: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """band_front's device part: the uploaded (count * band_h, W, 3)
+    stack of bands, its rows at or past live_rows outside the image,
+    through pipeline.scan_entries -> (its scan entries, (count, 3) final
+    DCs of each band). Enqueued on the current stream; nothing read back."""
+    count = stack.shape[0] // band_geom.height
     z, coeffs = pipeline.scan_entries(
-        stack.reshape(count, band_h, width, 3), band_geom,
+        stack.reshape(count, band_geom.height, stack.shape[1], 3), band_geom,
         config.dct_algorithm, config.quality, fast_dct=config.fast_dct,
-        bin_dct_descale=config.bin_dct_descale, live_rows=rows,
+        bin_dct_descale=config.bin_dct_descale, live_rows=live_rows,
     )
     return z, entropy_ops.final_dc(*coeffs, band_geom)
 

@@ -1,6 +1,7 @@
 """The port imports no JAX and nothing of jpeg_encoder_tpu: the machine with
 the card has no JAX installed, and the port keeps its own copies of the
-host modules it needs. A subprocess imports every module, encodes through
+host modules it needs. A subprocess imports every module (the bench tools
+too), encodes through
 every entry point (single image, batch, bands, stream, dataset) and runs
 `python -m jpeg_encoder_torch.cli --help`, then lists what got imported;
 an `ast` scan covers every port file and chip_smoke.py."""
@@ -32,6 +33,10 @@ from jpeg_encoder_torch.ops import dct as dct_ops
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.parallel import batch, multihost, stream, tiled
 from jpeg_encoder_torch.utils import bits, corpus
+import importlib
+for name in ("__main__", "dataset", "kernels", "matrix", "parity", "scaling",
+             "tiled", "timing"):
+    importlib.import_module("jpeg_encoder_torch.bench." + name)
 
 rgb = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)
 result = pipeline.encode_array(rgb, jpeg_encoder_torch.EncoderConfig(), device="cpu")

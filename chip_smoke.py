@@ -74,7 +74,17 @@ busy time and mismatch rates, the
 device operations of one K4 call (failing unless they are the memset and
 one kernel) and of one K5 call (failing unless it is one kernel), the
 stream against a synchronous read-encode-write loop and the pinned and
-pageable H2D rates. With --parent DIR (a checkout of an earlier commit)
+pageable H2D rates. The graph phase drives the compiled-program layer
+(jpeg_encoder_torch/graphs.py: each configuration's device program captured
+into a CUDA graph at its second call and replayed after): every option at
+1920x1080, 3840x2160 and a quirk geometry, three contents a key, each
+replayed file against the eager card file (graphs.disabled()) and the CPU
+path, every operand cache emptied between a key's first and second calls
+(the capture must build no operand), the capacity ladder past its first
+rung under a replayed key, an LRU eviction and re-capture, and encode_tiled's band programs at 4 and 8 bands
+on one share and on four; it prints each key's capture ms, pool MB and
+replays, and eager against replayed host, events and graph ms. With
+--parent DIR (a checkout of an earlier commit)
 it also builds DIR's sources of the kernels that differ and times both
 builds on the same operands. K5 also runs on adversarial operands (runs
 of 0-bit entries, 56-word entries, a row past bit 2^31, cut capacities).
@@ -802,6 +812,281 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
             check(False, f"checkerboard with validate on {device} did not raise")
     print("e2e bin-dct checkerboard with validate: ValueError on the card and "
           "on CPU, as the reference", flush=True)
+    return counts
+
+
+def program_of(cuda, key):
+    """The cached program of a pipeline key on cuda (graphs.run puts the
+    stream and the thread in front of the caller's key), or None."""
+    from jpeg_encoder_torch import graphs
+
+    for full, program in graphs.CACHE.programs(cuda):
+        if full[2:] == key:
+            return program
+    return None
+
+
+def replay_ms(cuda, program, calls: int = 10, reps: int = REPS) -> float:
+    """Median ms of one replay of a cached program's graph: `calls`
+    replays between two events, as bench/timing.graph_ms times a captured
+    call (its device work, no host)."""
+    clock = timing.EventClock(cuda)
+    times = []
+    for _ in range(reps):
+        clock.start()
+        for _ in range(calls):
+            program.graph.replay()
+        times.append(clock.stop() * 1e3 / calls)
+    return statistics.median(times)
+
+
+def graph_options():
+    """(label, config, encode_array keywords, hold against the CPU path) of
+    every option the graph phase drives."""
+    import dataclasses
+
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
+
+    bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
+    optimize = EncoderConfig(optimize_huffman=True)
+    return [
+        ("4:2:0", EncoderConfig(), {}, True),
+        ("4:2:2", EncoderConfig(subsampling_ratio=(4, 2, 2)), {}, True),
+        ("4:4:4", EncoderConfig(subsampling_ratio=(4, 4, 4)), {}, True),
+        ("bin-dct", bin_dct, {}, True),
+        ("bin-dct descale", dataclasses.replace(bin_dct, bin_dct_descale=True),
+         {}, True),
+        ("fast-dct", EncoderConfig(fast_dct=True), {}, False),
+        ("restart 120", EncoderConfig(restart_interval=120), {}, True),
+        ("restart 1", EncoderConfig(restart_interval=1), {}, False),
+        ("optimize", optimize, {}, True),
+        ("optimize restart 120",
+         dataclasses.replace(optimize, restart_interval=120), {}, True),
+        ("validate", EncoderConfig(validate=True), {}, True),
+        ("assemble", EncoderConfig(), {"packer": "assemble"}, True),
+        ("return_coeffs", EncoderConfig(), {"return_coeffs": True}, True),
+    ]
+
+
+def graph_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
+    """The compiled-program layer (jpeg_encoder_torch/graphs.py), driven:
+    every option of graph_options at 1920x1080 and 3840x2160 (corpus
+    frames) and at 1921x1089, a quirk geometry (no restart markers there;
+    restart 1 at 1080p only), three contents a key. A key's first call runs
+    eagerly, its second captures a CUDA graph and replays it, its third
+    replays: every file (and coefficients) == the eager card path's
+    (graphs.disabled()), and the first content's eager card file == the
+    CPU path's at 1080p and the quirk geometry for every exact option and
+    at 4K for 4:2:0 (the e2e phase holds the rest). Then every other option
+    and two band encodes at quality 77 with every operand cache emptied
+    between the first and second calls (the capture warms up, and builds
+    no operand itself, which on a card would be a blocking copy that
+    capture refuses), the capacity ladder
+    past the first rung under a replayed key (a 4 KiB first rung; 256 B an
+    interval at restart 120), an eviction (distinct quality keys at 4K
+    until the LRU drops one; that key captured again, still exact), and
+    encode_tiled at 4 and 8 bands, alone and over [cuda] * 4, unbroken,
+    restart 120 and optimize, three contents each, == encode_array. A
+    failed capture or replay raises and fails the run. Prints each key's
+    capture ms, pool MB and replays, and, outside the counted drive,
+    eager against replayed: encode_array host ms (median of 10 warm runs)
+    and its device program's events ms and graph ms at 1080p and 4K, and
+    encode_tiled host ms at 4 and 8 bands at 4K. Returns the launch
+    counts."""
+    import dataclasses
+
+    from jpeg_encoder_torch import graphs, pipeline
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.parallel import tiled
+    from jpeg_encoder_torch.utils import corpus
+
+    hd = list(images_1080.values())[:3]
+    uhd = list(variants(list(images_4k.values()), 3))
+    quirk = list(variants([corpus.landscape(1089, 1921)], 3))
+    geometries = (("1920x1080", hd), ("3840x2160", uhd),
+                  ("1921x1089", quirk))
+    lines = []
+
+    def encode(rgb, config, kw):
+        out = pipeline.encode_array(rgb, config, device=cuda, **kw)
+        return out if isinstance(out, tuple) else (out, None)
+
+    def same(got, want) -> bool:
+        if got[0].file_bytes != want[0].file_bytes:
+            return False
+        return got[1] is None or all(
+            np.array_equal(a, b) for a, b in zip(got[1], want[1]))
+
+    def drive_key(label, images, config, kw, cpu_check):
+        geom = config.geometry(images[0].shape[1], images[0].shape[0])
+        for i, rgb in enumerate(images):
+            got = encode(rgb, config, kw)
+            with graphs.disabled():
+                want = encode(rgb, config, kw)
+            check(same(got, want), f"graphs {label} content {i}: replayed "
+                  "!= eager card")
+            if i == 0 and cpu_check:
+                cpu = pipeline.encode_array(rgb, config, device="cpu")
+                check(want[0].file_bytes == cpu.file_bytes,
+                      f"graphs {label}: eager card != CPU")
+        capacity = kw.get("_initial_capacity_bytes") or (
+            pipeline.initial_capacity_bytes(geom, config))
+        keys = pipeline.program_keys(geom, config, capacity,
+                                     kw.get("return_coeffs", False),
+                                     kw.get("packer", "fused"))
+        for name, key in keys.items():
+            program = program_of(cuda, key)
+            check(program is not None and program.replays >= 2,
+                  f"graphs {label}: {name} program not replayed")
+            lines.append(f"graphs {label} [{name}]: capture "
+                         f"{program.capture_ms:.1f} ms, pool "
+                         f"{program.pool_bytes / 2**20:.1f} MB, replays "
+                         f"{program.replays}")
+        print(f"graphs {label}: {len(images)} contents, replayed == eager "
+              f"card{' == CPU' if cpu_check else ''} ({card})", flush=True)
+
+    def drive():
+        for geometry, images in geometries:
+            quirky = geometry == "1921x1089"
+            for label, config, kw, cpu in graph_options():
+                if config.restart_interval and (
+                        quirky or (config.restart_interval == 1
+                                   and geometry != "1920x1080")):
+                    continue
+                drive_key(f"{geometry} {label}", images, config, kw,
+                          cpu and (geometry != "3840x2160"
+                                   or label == "4:2:0"))
+        # Operands evicted between a key's first and second calls (other
+        # sizes or qualities push them out of their caches): the capture
+        # warms up first and builds none of them itself.
+        evicted = []
+        for label, config, kw, _ in graph_options()[::2]:
+            config = dataclasses.replace(config, quality=77)
+            for i, rgb in enumerate(hd):
+                if i == 1:
+                    for cached in graphs.operand_caches():
+                        cached.cache_clear()
+                got = encode(rgb, config, kw)
+                with graphs.disabled():
+                    want = encode(rgb, config, kw)
+                check(same(got, want), f"graphs {label} quality 77 content "
+                      f"{i}, operands evicted: replayed != eager card")
+            evicted.append(label)
+        for config in (EncoderConfig(quality=77, optimize_huffman=True),
+                       EncoderConfig(quality=77, restart_interval=120)):
+            for i, rgb in enumerate(hd):
+                if i == 1:
+                    for cached in graphs.operand_caches():
+                        cached.cache_clear()
+                got = tiled.encode_tiled(rgb, config, 4, device=cuda)
+                check(got.file_bytes == pipeline.encode_array(
+                    rgb, config, device=cuda).file_bytes,
+                      f"graphs encode_tiled {config}, operands evicted: "
+                      "!= encode_array")
+        print("graphs 1920x1080 quality 77, every operand cache emptied "
+              f"between a key's first and second calls ({', '.join(evicted)}"
+              "; encode_tiled 4 bands optimize, restart 120): captured, "
+              f"replayed == eager card ({card})", flush=True)
+        # The capacity ladder past the first rung, under replayed keys.
+        for label, config, first in (
+                ("ladder 4 KiB", EncoderConfig(), 4096),
+                ("ladder restart 120 256 B",
+                 EncoderConfig(restart_interval=120), 256)):
+            drive_key(f"1920x1080 {label}", hd, config,
+                      {"_initial_capacity_bytes": first}, False)
+            for rgb in hd:
+                check(pipeline.encode_array(
+                    rgb, config, device=cuda,
+                    _initial_capacity_bytes=first).file_bytes
+                      == pipeline.encode_array(rgb, config,
+                                               device=cuda).file_bytes,
+                      f"graphs 1920x1080 {label}: != the default rung's file")
+        # Distinct keys until the LRU evicts one; it comes back exact.
+        graphs.CACHE.clear()
+        before = graphs.CACHE.evictions
+        rgb = uhd[0]
+        keys = []
+        for quality in range(1, 101):
+            config = EncoderConfig(quality=quality)
+            for _ in range(2):
+                pipeline.encode_array(rgb, config, device=cuda)
+            keys.append(quality)
+            if graphs.CACHE.evictions > before:
+                break
+        check(graphs.CACHE.evictions > before,
+              "graphs: 100 4K keys evicted nothing")
+        held = graphs.CACHE.programs(cuda)
+        pool = sum(p.pool_bytes for _, p in held)
+        gone = EncoderConfig(quality=keys[0])
+        geom = gone.geometry(rgb.shape[1], rgb.shape[0])
+        check(program_of(cuda, pipeline.program_keys(
+            geom, gone, pipeline.initial_capacity_bytes(geom, gone))["scan"])
+              is None, "graphs: the least recent key was not evicted")
+        drive_key(f"3840x2160 quality {keys[0]} after eviction", uhd, gone,
+                  {}, False)
+        print(f"graphs eviction: {len(keys)} 3840x2160 keys, the cache "
+              f"holds {len(held)} programs, {pool / 2**20:.1f} MB of pools "
+              f"(bound {graphs.MAX_POOL_BYTES / 2**20:.0f} MB, "
+              f"{graphs.MAX_PROGRAMS} programs); quality {keys[0]} evicted, "
+              f"captured again, exact ({card})", flush=True)
+        # Bands: the front, statistics and encode programs of every run.
+        for config in (EncoderConfig(), EncoderConfig(restart_interval=120),
+                       EncoderConfig(optimize_huffman=True)):
+            for rgb in hd:
+                want = pipeline.encode_array(rgb, config,
+                                             device=cuda).file_bytes
+                for bands in (4, 8):
+                    for devices in (None, [cuda] * 4):
+                        got = tiled.encode_tiled(rgb, config, bands,
+                                                 device=cuda, devices=devices)
+                        check(got.file_bytes == want,
+                              f"graphs encode_tiled {bands} bands "
+                              f"{'x4 shares' if devices else ''} "
+                              f"{config}: != encode_array")
+        print("graphs encode_tiled 1920x1080 at 4 and 8 bands, one share and "
+              "[cuda] * 4, unbroken, restart 120, optimize, 3 contents: "
+              f"replayed == encode_array ({card})", flush=True)
+
+    counts = counted("graphs", drive, E2E_KERNELS)
+    for line in lines:
+        print(f"{line} ({card})", flush=True)
+
+    # Eager against replayed, outside the counted drive.
+    default = EncoderConfig()
+    for label, rgb in (("1920x1080", hd[0]), ("3840x2160", uhd[0])):
+        geom = default.geometry(rgb.shape[1], rgb.shape[0])
+        cap = pipeline.initial_capacity_bytes(geom, default)
+        key = pipeline.program_keys(geom, default, cap)["scan"]
+        program = pipeline.scan_program(geom, default, cap)
+        rgb_dev = timing.resident(rgb, cuda)
+
+        def call():
+            return graphs.run(key, program, {"rgb": rgb_dev}, cuda)
+
+        def array():
+            return pipeline.encode_array(rgb, default, device=cuda)
+
+        with graphs.disabled():
+            eager = (host_ms(array), cuda_ms(call),
+                     timing.graph_ms(call, cuda))
+        replayed = (host_ms(array), cuda_ms(call),
+                    replay_ms(cuda, program_of(cuda, key)))
+        print(f"graphs {label} 4:2:0 encode_array host ms (median of 10) "
+              f"eager {eager[0]:.4f} / replayed {replayed[0]:.4f}; its device "
+              f"program events ms eager {eager[1]:.4f} / replayed "
+              f"{replayed[1]:.4f}, graph ms eager {eager[2]:.4f} / replayed "
+              f"{replayed[2]:.4f} ({card})", flush=True)
+    rgb = uhd[0]
+    for bands in (4, 8):
+        def band_call():
+            return tiled.encode_tiled(rgb, default, bands, device=cuda)
+
+        with graphs.disabled():
+            eager = host_ms(band_call)
+        replayed = host_ms(band_call)
+        print(f"graphs 3840x2160 4:2:0 encode_tiled {bands} bands host ms "
+              f"(median of 10) eager {eager:.4f} / replayed {replayed:.4f} "
+              f"({card})", flush=True)
     return counts
 
 
@@ -2068,7 +2353,7 @@ def bench_runs(tmp: str, launches: dict) -> list[tuple]:
         ("scaling batch curve", "scaling", short + ["--batch-curve"],
          ("rows",)),
         ("scaling shares", "scaling", short + ["--shares", "4"], ("rows",)),
-        ("kernels", "kernels", ["--launches", json.dumps(launches)],
+        ("kernels", "kernels", short + ["--launches", json.dumps(launches)],
          ("kernels", "stages", "matmul_ms")),
         ("parity color", "parity", ["--color"], ("triples", "mismatched")),
         ("parity corpus", "parity", ["--corpus"], ("cases", "identical")),
@@ -2437,6 +2722,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
         path_counts = [e2e_phase(cuda, images_1080, images_4k, tmp)]
     phase_s["e2e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path_counts.append(graph_phase(cuda, images_1080, images_4k, card))
+    phase_s["graphs"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     path_counts.append(batch_phase(cuda, images_1080, images_4k, card))
     phase_s["batch"] = time.perf_counter() - t0

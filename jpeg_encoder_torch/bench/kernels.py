@@ -17,8 +17,12 @@ and, with --launches (a JSON object of kernel name -> launches on the main
 paths, as chip_smoke.py counts them), launches x (graph ms - bound), by
 which the table is ranked. Then the stage map: the front, K1, the
 marshal, K4 and encode_core as a whole, each by graph_ms (encode_core, not
-the capacity ladder, which reads the card). With --device cpu every time
-is the host clock's. Two markdown tables, then one JSON line.
+the capacity ladder, which reads the card); beside them encode_array's
+device program (pipeline.scan_program through graphs.run, on the resident
+frame) by the window timer on the card's events, replayed and eager
+(graphs.disabled()): the host's launches against one graph launch. With
+--device cpu every time is the host clock's. Two markdown tables, then one
+JSON line.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import sys
 import numpy as np
 import torch
 
-from jpeg_encoder_torch import pipeline, scan
+from jpeg_encoder_torch import graphs, pipeline, scan
 from jpeg_encoder_torch.bench import timing
 from jpeg_encoder_torch.config import EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.kernels import dct as dct_kernel
@@ -200,6 +204,15 @@ def stage_calls(ops: Operands) -> dict:
     }
 
 
+def program_call(ops: Operands):
+    """fn() -> encode_array's device program on ops' resident frame, through
+    graphs.run (its rgb copied into the program's buffer each replay)."""
+    config = EncoderConfig()
+    key = pipeline.program_keys(ops.geom, config, ops.cap)["scan"]
+    program = pipeline.scan_program(ops.geom, config, ops.cap)
+    return lambda: graphs.run(key, program, {"rgb": ops.rgb}, ops.rgb.device)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = timing.parser(__doc__.splitlines()[0])
     ap.add_argument("--height", type=int, default=1080)
@@ -230,6 +243,12 @@ def main(argv: list[str] | None = None) -> int:
         })
     stages = {name: timing.graph_ms(fn, device, args.calls)
               for name, fn in stage_calls(ops).items()}
+    program_clock = timing.clock_for(device)
+    program = {"replayed": timing.window(program_call(ops), args.min_seconds,
+                                         program_clock).per_call_ms()}
+    with graphs.disabled():
+        program["eager"] = timing.window(program_call(ops), args.min_seconds,
+                                         program_clock).per_call_ms()
     rows.sort(key=lambda r: -(r["excess_ms"] if r["excess_ms"] is not None
                               else r["ms"] - r["bound_ms"]))
     label = f"{args.width}x{args.height} 4:2:0 corpus landscape"
@@ -249,10 +268,13 @@ def main(argv: list[str] | None = None) -> int:
     print("|---|---|")
     for name, ms in stages.items():
         print(f"| {name} | {ms:.4f} |", flush=True)
+    for name, window in program.items():
+        print(f"| encode_array's program, {name} ({program_clock.name}) | "
+              f"{window['ms']:.4f} |", flush=True)
     timing.emit({"metric": "kernel_times", "clock": clock, "calls":
                  args.calls, "geometry": f"{args.width}x{args.height}",
                  "kernels": rows, "matmul_ms": library["fastdct"],
-                 "stages": stages, "card": card})
+                 "stages": stages, "program": program, "card": card})
     return 0
 
 

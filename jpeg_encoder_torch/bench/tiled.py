@@ -5,22 +5,25 @@
 
 One corpus frame (4:2:0, RealDCT) resident on the card, as 4 and 8 MCU-row
 bands on the one device. Times, by the window timer on the device's clock,
-the band program's device part (parallel/tiled.stack_front on the uploaded
-band stack, the chained DC predictors, one K4 launch of a row a band:
+the band program's device part (parallel/tiled.stack_front on the resident
+rows, the chained DC predictors, one K4 launch of a row a band:
 encode_tiled without its upload, fetch and splice) against
 pipeline.encode_core on the same resident image; then, by the host clock,
 tiled.encode_tiled against pipeline.encode_array (numpy RGB in, JFIF bytes
 out, upload and fetch included), after checking that their files are
-equal. A markdown table, then one JSON line.
+equal. The band programs and encode_array run as replayed CUDA graphs
+(graphs.py), and again eagerly under graphs.disabled(): the "_eager" keys.
+Either way the device part includes one device-to-device copy of the
+resident rows into the top of the band stack (the front program's zeroed
+buffer when replayed; a stack zeroed each call when eager).
+A markdown table, then one JSON line.
 """
 
 from __future__ import annotations
 
 import sys
 
-import torch
-
-from jpeg_encoder_torch import pipeline
+from jpeg_encoder_torch import graphs, pipeline
 from jpeg_encoder_torch.bench import timing
 from jpeg_encoder_torch.config import EncoderConfig
 from jpeg_encoder_torch.parallel import tiled
@@ -28,20 +31,17 @@ from jpeg_encoder_torch.parallel.devices import resolve_device
 from jpeg_encoder_torch.utils import corpus
 
 
-def band_program(rgb, config, bands, device):
+def band_program(rgb, rgb_dev, config, bands, device):
     """fn() -> the enqueued (payloads, bits) of the band program's device
-    part over an uploaded, zero-padded stack of `bands` bands."""
+    part over rgb_dev, rgb resident on device, as `bands` bands."""
     geom, band_rows = tiled.prepare(rgb, config, bands)
     if band_rows is None:
         raise ValueError(f"{geom.width}x{geom.height} admits no band split")
     run = tiled.BandRun(geom, band_rows, 0, bands)
-    band_geom = run.band_geom
-    stack = torch.zeros((bands * band_geom.height, geom.width, 3),
-                        dtype=torch.uint8, device=device)
-    stack[: geom.height].copy_(torch.from_numpy(rgb))
 
     def program():
-        z, lasts = tiled.stack_front(stack, config, band_geom, geom.height)
+        z, lasts = tiled.stack_front(rgb_dev, config, run.band_geom, 0,
+                                     bands, device)
         return run.encode(z, tiled.chained(lasts), None, config)
 
     return program
@@ -69,35 +69,46 @@ def main(argv: list[str] | None = None) -> int:
                                      cap, with_coeffs=False),
         args.min_seconds, clock)
     single = pipeline.encode_array(rgb, config, device=device).file_bytes
-    array = timing.window(
+
+    def both(fn, clock):
+        """fn's window replayed, then eager."""
+        replayed = timing.window(fn, args.min_seconds, clock)
+        with graphs.disabled():
+            return replayed, timing.window(fn, args.min_seconds, clock)
+
+    array, array_eager = both(
         lambda: pipeline.encode_array(rgb, config, device=device),
-        args.min_seconds, timing.HostClock())
-    print(f"| program | device ms ({clock.name}) | Mpix/s | host ms "
-          "(encode_tiled / encode_array) |")
+        timing.HostClock())
+    print(f"| program | device ms ({clock.name}), replayed / eager | Mpix/s "
+          "| host ms (encode_tiled / encode_array), replayed / eager |")
     print("|---|---|---|---|")
     print(f"| encode_core | {core.median * 1e3:.4f} | "
-          f"{core.rate(pixels)['value']:.1f} | "
-          f"{array.median * 1e3:.4f} |", flush=True)
+          f"{core.rate(pixels)['value']:.1f} | {array.median * 1e3:.4f} / "
+          f"{array_eager.median * 1e3:.4f} |", flush=True)
     rows = []
     for bands in args.bands:
-        device_part = timing.window(band_program(rgb, config, bands, device),
-                                    args.min_seconds, clock)
+        device_part, device_eager = both(
+            band_program(rgb, rgb_dev, config, bands, device), clock)
         got = tiled.encode_tiled(rgb, config, bands, device=device)
         if got.file_bytes != single:
             raise RuntimeError(f"encode_tiled at {bands} bands differs from "
                                "encode_array")
-        host = timing.window(
+        host, host_eager = both(
             lambda: tiled.encode_tiled(rgb, config, bands, device=device),
-            args.min_seconds, timing.HostClock())
+            timing.HostClock())
         rows.append({"bands": bands, "device": device_part.per_call_ms(),
+                     "device_eager": device_eager.per_call_ms(),
                      "host": host.per_call_ms(),
+                     "host_eager": host_eager.per_call_ms(),
                      "mpixel_s": device_part.rate(pixels)["value"]})
-        print(f"| {bands} bands | {device_part.median * 1e3:.4f} | "
-              f"{rows[-1]['mpixel_s']:.1f} | {host.median * 1e3:.4f} |",
-              flush=True)
+        print(f"| {bands} bands | {device_part.median * 1e3:.4f} / "
+              f"{device_eager.median * 1e3:.4f} | "
+              f"{rows[-1]['mpixel_s']:.1f} | {host.median * 1e3:.4f} / "
+              f"{host_eager.median * 1e3:.4f} |", flush=True)
     timing.emit({"metric": "tiled_encode", "geometry":
                  f"{args.width}x{args.height}", "encode_core":
                  core.per_call_ms(), "encode_array": array.per_call_ms(),
+                 "encode_array_eager": array_eager.per_call_ms(),
                  "rows": rows, "card": card})
     return 0
 

@@ -114,8 +114,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument(
         "--fast-dct", action="store_true",
-        help="use the tensor-core RealDCT (fastest; fewer than 1e-3 of the "
-        "quantized coefficients differ from the scalar reference, by one)",
+        help="use the tensor-core RealDCT (fastest; measured against the "
+        "exact RealDCT on an H100, 3.0e-05 of the quantized coefficients "
+        "differ, by one, at the default tables, 2.2e-04 at -q 90 and "
+        "1.1e-03 at -q 100)",
     )
     parser.add_argument(
         "--device", default="cuda", metavar="DEVICE",

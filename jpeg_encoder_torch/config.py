@@ -165,9 +165,13 @@ class EncoderConfig:
     dct_algorithm: DctAlgorithm = DctAlgorithm.REAL_DCT
     # RealDCT flavor. False (default) = reference-parity accumulation order:
     # quantized coefficients are bit-identical to the scalar reference.
-    # True = single (N, 64) @ (64, 64) MXU matmul: same math, different f32
-    # summation order; ~1e-5 of coefficients land one quantization step away
-    # from the reference (visually and PSNR-wise indistinguishable).
+    # True = one (N, 64) @ (64, 64) product on the tensor cores (mma.sync on
+    # a 3-term bf16 split of the f32 matrix): same math, different f32
+    # summation order. Against the exact RealDCT on an H100 (1920x1080
+    # 4:2:0, PERF.md §6) 3.0e-05 of the coefficients land one quantization
+    # step away at the default tables, 2.2e-04 at quality 90 and 1.1e-03 at
+    # quality 100, every mismatch by one on a float32 rounding tie
+    # (visually and PSNR-wise indistinguishable).
     fast_dct: bool = False
     # binDCT flavor. False (default) = reference bug-parity: raw lifting
     # outputs quantized directly, reproducing the acknowledged de-scaling

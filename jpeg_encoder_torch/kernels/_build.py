@@ -19,6 +19,7 @@ the reports of the sources it compiled (ptxas_usage reads them).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -42,6 +43,7 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _reports: dict[str, str] = {}  # source name -> nvcc's stderr (ptxas -v)
+_recording = threading.local()  # .counts: this thread's capture's launches
 
 
 def names() -> list[str]:
@@ -190,11 +192,35 @@ class Kernel:
 
     def launch(self, *args) -> None:
         """Call the entry point (which returns the launch's cudaError_t)
-        and count the launch; raise if it failed."""
+        and count the launch; raise if it failed. Inside recording() the
+        launch is counted there instead: it was captured into a CUDA graph,
+        and runs on the card only when the graph is replayed."""
         err = self._fn(*args)
         if err != 0:
             raise RuntimeError(
                 f"{self.name} kernel launch failed: cudaError_t {err}"
             )
-        with _count_lock:  # the stream engine launches from two threads
-            self.launches += 1
+        captured = getattr(_recording, "counts", None)
+        if captured is not None:
+            captured[self] = captured.get(self, 0) + 1
+            return
+        add_launches({self: 1})
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's kernel launches into the dict it yields (Kernel
+    -> launches) instead of Kernel.launches: graphs.py wraps a capture in
+    it and adds the dict to the counts at every replay (add_launches)."""
+    _recording.counts = {}
+    try:
+        yield _recording.counts
+    finally:
+        _recording.counts = None
+
+
+def add_launches(counts: dict) -> None:
+    """Add launches (Kernel -> count) to each kernel's count."""
+    with _count_lock:  # the stream engine launches from two threads
+        for kernel, n in counts.items():
+            kernel.launches += n

@@ -16,10 +16,10 @@ parallel/tiled.py), else from 0.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
+from jpeg_encoder_torch import graphs
 from jpeg_encoder_torch.config import FrameGeometry
 from jpeg_encoder_torch.kernels._build import Kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
@@ -36,7 +36,7 @@ _TILE = 64  # entries a tile (kTile in entropy.cu)
 MAX_NUM_WORDS = 2**31 - 1
 
 
-@functools.lru_cache(maxsize=8)
+@graphs.operand_cache(maxsize=8)
 def _zero_dc(device: torch.device) -> torch.Tensor:
     """The default init_dc on device, made once: a call then runs no
     device operation but the kernel's memset and the kernel. Made by a

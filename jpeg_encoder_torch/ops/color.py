@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from jpeg_encoder_torch import graphs
+
 _F32 = np.float32
 
 
@@ -43,7 +45,7 @@ def _channel_luts_np() -> np.ndarray:
     ]).astype(_F32)
 
 
-@functools.lru_cache(maxsize=8)
+@graphs.operand_cache(maxsize=8)
 def _channel_luts(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_channel_luts_np()).to(device)
 

@@ -40,11 +40,11 @@ import functools
 import numpy as np
 import torch
 
-from jpeg_encoder_torch import constants, tables
+from jpeg_encoder_torch import constants, graphs, tables
 from jpeg_encoder_torch.ops.sample import blockify
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.operand_cache(maxsize=32)
 def device_constants(
     quality: int | None, device: torch.device
 ) -> tuple[torch.Tensor, ...]:
@@ -64,7 +64,7 @@ def fast_device_constant(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(constants.fast_kron_zigzag().copy()).to(device)
 
 
-@functools.lru_cache(maxsize=8)
+@graphs.operand_cache(maxsize=8)
 def fast_split_device_constant(device: torch.device) -> torch.Tensor:
     """K2's operand: the (3, 64, 64) bfloat16 split [m1, m2, m3] of K_zz
     (constants.fast_kron_split) on device."""
@@ -72,7 +72,7 @@ def fast_split_device_constant(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(bits).view(torch.bfloat16).to(device)
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.operand_cache(maxsize=32)
 def bindct_device_constants(
     quality: int | None, device: torch.device
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -83,7 +83,7 @@ def bindct_device_constants(
     )
 
 
-@functools.lru_cache(maxsize=32)
+@graphs.operand_cache(maxsize=32)
 def bindct_divisors_device_constant(
     quality: int | None, device: torch.device
 ) -> torch.Tensor:

@@ -48,7 +48,7 @@ import functools
 import numpy as np
 import torch
 
-from jpeg_encoder_torch import constants, oracle
+from jpeg_encoder_torch import constants, graphs, oracle
 from jpeg_encoder_torch.config import FrameGeometry
 
 # Upper bound on packed bits per scan entry (one 8x8 block): the DC slot
@@ -108,7 +108,7 @@ def scan_layout(geom: FrameGeometry) -> ScanLayout:
     )
 
 
-@functools.lru_cache(maxsize=64)
+@graphs.operand_cache(maxsize=64)
 def _entry_rows(
     geom: FrameGeometry, batch: int, device: torch.device
 ) -> torch.Tensor:
@@ -213,7 +213,7 @@ def entries_per_interval(geom: FrameGeometry, restart_mcus: int) -> int:
 # Symbolization
 # --------------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=8)
+@graphs.operand_cache(maxsize=8)
 def device_luts(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """The Annex-K (dc, ac) (2, 256) int32 packed tables on device."""
     dc, ac = constants.default_packed_luts()
@@ -412,9 +412,11 @@ def symbol_histograms(
     a category the tables do not cover has no code (a corrupt stream).
     init_dc is dc_differences': (3,), or one (3,) vector a row of
     restart_mcus MCUs (a band stack's rows, parallel/tiled.py).
-    One bincount over the slots' symbol ids, offset by 1025 per image;
-    silent slots and dead entries land in each image's 1025th bin, which
-    is dropped.
+    One index_add_ of ones over the slots' symbol ids, offset by 1025 per
+    image, into batch * 1025 bins; silent slots and dead entries land in
+    each image's 1025th bin, which is dropped. (torch.bincount would read
+    the largest id back to size its output: a sync, which capture into a
+    CUDA graph refuses.)
     """
     per_image = geom.num_scan_entries
     batch = z.shape[0] // per_image
@@ -426,7 +428,11 @@ def symbol_histograms(
     )
     image = torch.arange(z.shape[0], device=z.device) // per_image
     ids = ids + (image * (_TRASH + 1))[:, None]
-    hist = torch.bincount(ids.reshape(-1), minlength=batch * (_TRASH + 1))
+    ids = ids.reshape(-1)
+    hist = torch.zeros(batch * (_TRASH + 1), dtype=torch.int64,
+                       device=z.device).index_add_(
+        0, ids, torch.ones((1,), dtype=torch.int64,
+                           device=z.device).expand(ids.shape[0]))
     hist = hist.reshape(batch, _TRASH + 1)[:, :_TRASH].reshape(batch, 4, 256)
     return hist[0] if batch == 1 else hist
 
@@ -435,12 +441,17 @@ def symbol_histograms(
 # Packing
 # --------------------------------------------------------------------------
 
+@graphs.operand_cache(maxsize=8)
+def _byte_shifts(device: torch.device) -> torch.Tensor:
+    """A word's four byte shifts, most significant first, on device."""
+    return torch.tensor([24, 16, 8, 0]).to(device)
+
+
 def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     """u32 word values (any integer dtype) along the last axis -> the
     big-endian uint8 stream, one row per leading index."""
-    shifts = torch.tensor([24, 16, 8, 0], device=words.device)
     w = words.to(torch.int64)[..., None]
-    return ((w >> shifts) & 0xFF).to(torch.uint8).reshape(
+    return ((w >> _byte_shifts(words.device)) & 0xFF).to(torch.uint8).reshape(
         *words.shape[:-1], -1
     )
 

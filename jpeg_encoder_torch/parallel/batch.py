@@ -28,7 +28,7 @@ counts, then one copy of every row up to the longest payload) and
 assemble_chunk (JFIF files on the host; a member whose payload overflowed
 the chunk's shared capacity is re-encoded alone through
 pipeline.encode_array from the next capacity rung). Optimized Huffman runs
-the two passes over each share: statistics (one bincount), tables on the
+the two passes over each share: statistics (one histogram), tables on the
 host, then the encode of the same scan entries with per-image tables.
 
 Files are byte-identical to pipeline.encode_array's for every config. Like

@@ -55,7 +55,7 @@ import warnings
 import numpy as np
 import torch
 
-from jpeg_encoder_torch import pipeline
+from jpeg_encoder_torch import graphs, pipeline
 from jpeg_encoder_torch.config import EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.io import jfif
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
@@ -323,10 +323,18 @@ class BandRun:
 
     def histogram(self, z, init_dc, restart):
         """(4, 256) symbol counts of the run's entries, its rows (bands,
-        or restart intervals) framed and seeded as the encode's."""
-        return entropy_ops.symbol_histograms(
-            z, self.stack_geom, restart or self.band_rows * self.geom.mcu_cols,
-            init_dc, live_entries=self.live_entries)
+        or restart intervals) framed and seeded as the encode's: one
+        program (graphs.run), the JAX package's compiled_tiled_stats."""
+        framing = restart or self.band_rows * self.geom.mcu_cols
+
+        def program(z, init_dc=None):
+            return entropy_ops.symbol_histograms(
+                z, self.stack_geom, framing, init_dc,
+                live_entries=self.live_entries)
+
+        key = ("band_stats", self.stack_geom, self.band_rows, self.first,
+               restart, self.live_entries)
+        return graphs.run(key, program, _operands(z, init_dc), z.device)
 
     def capacity(self, config) -> int:
         """The shared capacity of a band (of an interval with restart
@@ -341,13 +349,25 @@ class BandRun:
     def encode(self, z, init_dc, luts, config):
         """Enqueue one K4 launch over the run: a row a band seeded from
         its init_dc row, or, with restart markers, a row an interval with
-        its predictors reset. -> (payloads, bits) on z's device."""
+        its predictors reset. -> (payloads, bits) on z's device. One
+        program (graphs.run), the JAX package's compiled_band_encoder and
+        compiled_band_restart_encoder; init_dc and luts are copied into
+        its buffers."""
         restart = config.restart_interval
         epi = (self.band_entries if restart is None
                else entropy_ops.entries_per_interval(self.stack_geom, restart))
-        return entropy_kernel.encode_entries(
-            z, self.stack_geom, self.capacity(config), init_dc, luts,
-            live_entries=self.live_entries, entries_per_interval=epi)
+        capacity = self.capacity(config)
+
+        def program(z, init_dc=None, dc_lut=None, ac_lut=None):
+            return entropy_kernel.encode_entries(
+                z, self.stack_geom, capacity, init_dc,
+                None if dc_lut is None else (dc_lut, ac_lut),
+                live_entries=self.live_entries, entries_per_interval=epi)
+
+        key = ("band_encode", self.stack_geom, self.band_rows, self.first,
+               restart, self.live_entries, capacity, luts is not None)
+        return graphs.run(key, program, _operands(z, init_dc, luts),
+                          z.device)
 
     def collect(self, z, payloads, bit_lengths, init_dc, luts, config):
         """The run's fetched rows -> [(payload, bits)] in scan order: one a
@@ -404,35 +424,58 @@ def band_front(
     planes. -> (the stack's (count * E_band, 64) scan entries, band after
     band; (count, 3) int32 final DC predictors of each band,
     ops/entropy.final_dc)."""
-    height, width = rgb.shape[:2]
     band_geom = _band_geometry(geom, band_rows * 8 * geom.v_factor)
-    band_h = band_geom.height
-    top = first * band_h
-    rows = max(0, min(height - top, count * band_h))
-    stack = torch.zeros((count * band_h, width, 3), dtype=torch.uint8,
-                        device=device)
-    stack[:rows].copy_(torch.from_numpy(
-        np.ascontiguousarray(rgb[top : top + rows], dtype=np.uint8)))
-    return stack_front(stack, config, band_geom, rows)
+    top = first * band_geom.height
+    rows = max(0, min(rgb.shape[0] - top, count * band_geom.height))
+    live = torch.from_numpy(
+        np.ascontiguousarray(rgb[top : top + rows], dtype=np.uint8))
+    return stack_front(live, config, band_geom, first, count,
+                       torch.device(device))
 
 
 def stack_front(
-    stack: torch.Tensor,
+    live: torch.Tensor,
     config: EncoderConfig,
     band_geom: FrameGeometry,
-    live_rows: int,
+    first: int,
+    count: int,
+    device: torch.device,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """band_front's device part: the uploaded (count * band_h, W, 3)
-    stack of bands, its rows at or past live_rows outside the image,
-    through pipeline.scan_entries -> (its scan entries, (count, 3) final
-    DCs of each band). Enqueued on the current stream; nothing read back."""
-    count = stack.shape[0] // band_geom.height
-    z, coeffs = pipeline.scan_entries(
-        stack.reshape(count, band_geom.height, stack.shape[1], 3), band_geom,
-        config.dct_algorithm, config.quality, fast_dct=config.fast_dct,
-        bin_dct_descale=config.bin_dct_descale, live_rows=live_rows,
-    )
-    return z, entropy_ops.final_dc(*coeffs, band_geom)
+    """band_front's device part, one program (graphs.run; the JAX package's
+    compiled_tiled_encoder front): the (rows, W, 3) image rows of bands
+    first .. first + count - 1 (on the host or on device) go into the top
+    of the program's zeroed (count * band_h, W, 3) stack, through
+    pipeline.scan_entries with the rows at or past `rows` outside the
+    image -> (the stack's scan entries, (count, 3) final DCs of each band).
+    Enqueued on the current stream; nothing read back. The band programs
+    are keyed by their run's first band: one encode holds every run's
+    outputs at once, and runs may share a stream."""
+    rows, width = live.shape[:2]
+    band_h = band_geom.height
+
+    def program(rgb):
+        z, coeffs = pipeline.scan_entries(
+            rgb.reshape(count, band_h, width, 3), band_geom,
+            config.dct_algorithm, config.quality, fast_dct=config.fast_dct,
+            bin_dct_descale=config.bin_dct_descale, live_rows=rows,
+        )
+        return z, entropy_ops.final_dc(*coeffs, band_geom)
+
+    key = ("band_front", band_geom, first, count, rows,
+           *pipeline.dct_key(config))
+    return graphs.run(key, program, {"rgb": live}, device,
+                      pad={"rgb": count * band_h})
+
+
+def _operands(z, init_dc=None, luts=None) -> dict:
+    """A band program's inputs: z, and init_dc and the (dc, ac) tables
+    where given."""
+    inputs = {"z": z}
+    if init_dc is not None:
+        inputs["init_dc"] = init_dc
+    if luts is not None:
+        inputs["dc_lut"], inputs["ac_lut"] = luts
+    return inputs
 
 
 def chained(lasts: torch.Tensor, incoming: torch.Tensor | None = None):

@@ -11,23 +11,26 @@ CUDA code on CUDA tensors and their plain PyTorch versions on CPU tensors.
 The host decodes the BMP, builds optimal tables, stuffs 0xFF bytes and
 writes the JFIF container (the port's tables.py and io/).
 
-encode_array and encode_file run on "cuda" unless the caller passes
-another device ("cpu" runs the plain versions); without a card they raise,
-they do not fall back. The front half (scan_entries) also takes a batch of
-images, (B, H, W, 3), which parallel/batch.py codes in one launch per
-kernel.
+encode_array runs its device programs through graphs.run: on a card, one
+CUDA graph a configuration (program_keys), replayed from the second call
+of a key on (the counterpart of the JAX package's compiled_encoder,
+compiled_restart_encoder, compiled_stats_encoder and
+compiled_custom_encoder). encode_array and encode_file run on "cuda"
+unless the caller passes another device ("cpu" runs the plain versions);
+without a card they raise, they do not fall back. The front half
+(scan_entries) also takes a batch of images, (B, H, W, 3), which
+parallel/batch.py codes in one launch per kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 
 import numpy as np
 import torch
 
-from jpeg_encoder_torch import scan, tables
+from jpeg_encoder_torch import graphs, scan, tables
 from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.io import bmp, jfif
 from jpeg_encoder_torch.kernels import dct as dct_kernel
@@ -83,6 +86,15 @@ def restart_default_capacity_bytes(
     return min(cap, worst)
 
 
+def initial_capacity_bytes(geom: FrameGeometry, config: EncoderConfig) -> int:
+    """The capacity ladder's first rung for config at geom: the whole
+    scan's buffer, or one restart interval's."""
+    if config.restart_interval is None:
+        return default_capacity_bytes(geom, config.capacity_bytes_per_pixel)
+    return restart_default_capacity_bytes(
+        geom, config.restart_interval, config.capacity_bytes_per_pixel)
+
+
 def restart_next_capacity_bytes(
     geom: FrameGeometry, restart_mcus: int, capacity_bytes: int
 ) -> int:
@@ -118,7 +130,7 @@ def dct_planes_zigzag(
     )
 
 
-@functools.lru_cache(maxsize=8)
+@graphs.operand_cache(maxsize=8)
 def _inverse_zigzag(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(tables.ZIGZAG_INVERSE.astype(np.int64)).to(device)
 
@@ -418,6 +430,63 @@ def _climb_capacity_ladder(encode, geom, capacity, restart_mcus, validate):
                                                    capacity)
 
 
+def dct_key(config: EncoderConfig) -> tuple:
+    """The DCT a config runs (dct_planes_zigzag): fast_dct picks the
+    RealDCT kernel and bin_dct_descale the binDCT quantization, each
+    ignored by the other algorithm."""
+    if config.dct_algorithm == DctAlgorithm.REAL_DCT:
+        return config.dct_algorithm, config.fast_dct, config.quality
+    return config.dct_algorithm, config.bin_dct_descale, config.quality
+
+
+def program_keys(
+    geom: FrameGeometry,
+    config: EncoderConfig,
+    capacity_bytes: int,
+    with_coeffs: bool = False,
+    packer: str = "fused",
+) -> dict[str, tuple]:
+    """The keys (graphs.run) of encode_array's device programs for config
+    at geom, the ladder's first rung capacity_bytes: {"scan": rgb -> the
+    scan (with its entries, its ranges under validate, the coefficients
+    with with_coeffs)}, or with optimize_huffman {"stats": rgb -> symbol
+    counts and entries, "custom": entries and tables -> the scan}. Each
+    holds what the JAX package's compiled_* cache keys hold."""
+    front = (geom, *dct_key(config), config.restart_interval)
+    if config.optimize_huffman:
+        return {"stats": ("stats", *front),
+                "custom": ("custom", *front, capacity_bytes, config.validate,
+                           packer)}
+    return {"scan": ("scan", *front, capacity_bytes, config.validate,
+                     with_coeffs, packer)}
+
+
+def scan_program(
+    geom: FrameGeometry,
+    config: EncoderConfig,
+    capacity_bytes: int,
+    with_coeffs: bool = False,
+    packer: str = "fused",
+):
+    """encode_array's device program without optimize_huffman (the JAX
+    package's compiled_encoder and compiled_restart_encoder): fn(rgb) ->
+    custom_core's result with the scan entries under "z" and, with
+    with_coeffs, the natural-order coefficients under "coeffs"."""
+
+    def program(rgb):
+        z, coeffs = scan_entries(
+            rgb, geom, config.dct_algorithm, config.quality,
+            fast_dct=config.fast_dct, bin_dct_descale=config.bin_dct_descale)
+        result = custom_core(z, geom, capacity_bytes, None,
+                             config.restart_interval, config.validate, packer)
+        result["z"] = z
+        if with_coeffs:
+            result["coeffs"] = natural_order(coeffs)
+        return result
+
+    return program
+
+
 def check_config(config) -> None:
     """Refuse a config that is not this package's own EncoderConfig.
 
@@ -453,6 +522,11 @@ def encode_array(
     (per interval with restart markers). With return_coeffs (the unbroken
     Annex-K scan only), also returns the (N_i, 64) int16 natural-order
     quantized coefficients (y, cb, cr) as NumPy arrays.
+
+    The device work is one program (two with optimize_huffman), run through
+    graphs.run under program_keys: on a card the first call of a key runs
+    it eagerly, the second captures it into a CUDA graph, later calls
+    replay it (graphs.disabled() keeps it eager).
     """
     check_config(config)
     if rgb.ndim != 3 or rgb.shape[2] != 3:
@@ -469,35 +543,48 @@ def encode_array(
     if restart is not None:
         check_restart_geometry(geom)
     device = resolve_device(device)
-    device_rgb = torch.tensor(np.asarray(rgb, dtype=np.uint8), device=device)
+    host_rgb = torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8))
+    capacity = _initial_capacity_bytes or initial_capacity_bytes(geom, config)
+    keys = program_keys(geom, config, capacity, return_coeffs, packer)
     front = dict(fast_dct=config.fast_dct,
                  bin_dct_descale=config.bin_dct_descale)
-    # The front half runs once; the capacity ladder retries the scan only.
-    specs = luts = None
+    specs = host_luts = None
     if config.optimize_huffman:
-        hist, z = stats_core(device_rgb, geom, config.dct_algorithm,
-                             config.quality, restart_mcus=restart, **front)
-        specs, luts = optimal_specs_and_luts(hist.cpu().numpy(), device)
-    else:
-        z, coeffs = scan_entries(device_rgb, geom, config.dct_algorithm,
-                                 config.quality, **front)
+        # Two programs, as the JAX package's stats and custom encoders: the
+        # host builds the tables between them.
+        def stats_program(rgb):
+            return stats_core(rgb, geom, config.dct_algorithm, config.quality,
+                              restart_mcus=restart, **front)
 
-    def encode(capacity):
-        return custom_core(z, geom, capacity, luts, restart, config.validate,
+        def custom_program(z, dc_lut, ac_lut):
+            return custom_core(z, geom, capacity, (dc_lut, ac_lut), restart,
+                               config.validate, packer)
+
+        hist, z = graphs.run(keys["stats"], stats_program, {"rgb": host_rgb},
+                             device)
+        specs, host_luts = optimal_specs_and_luts(hist.cpu().numpy(), "cpu")
+        first = graphs.run(
+            keys["custom"], custom_program,
+            {"z": z, "dc_lut": host_luts[0], "ac_lut": host_luts[1]}, device)
+    else:
+        first = graphs.run(
+            keys["scan"],
+            scan_program(geom, config, capacity, return_coeffs, packer),
+            {"rgb": host_rgb}, device)
+        z = first["z"]
+
+    # The program codes the first rung; a rung above it (rare) codes the
+    # program's entries again, eagerly: the front half runs once.
+    def encode(rung):
+        if rung == capacity:
+            return first
+        luts = (None if host_luts is None
+                else tuple(t.to(device) for t in host_luts))
+        return custom_core(z, geom, rung, luts, restart, config.validate,
                            packer)
 
-    if restart is None:
-        capacity = default_capacity_bytes(
-            geom, config.capacity_bytes_per_pixel
-        )
-    else:
-        capacity = restart_default_capacity_bytes(
-            geom, restart, config.capacity_bytes_per_pixel
-        )
-    out = _climb_capacity_ladder(
-        encode, geom, _initial_capacity_bytes or capacity, restart,
-        config.validate,
-    )
+    out = _climb_capacity_ladder(encode, geom, capacity, restart,
+                                 config.validate)
     if restart is not None:
         bits = out["bits"].cpu().numpy()
         # Fetch only the longest interval's byte prefix of every row.
@@ -517,7 +604,7 @@ def encode_array(
         geom=geom,
     )
     if return_coeffs:
-        return result, tuple(c.cpu().numpy() for c in natural_order(coeffs))
+        return result, tuple(c.cpu().numpy() for c in first["coeffs"])
     return result
 
 

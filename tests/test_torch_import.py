@@ -25,7 +25,7 @@ _SCRIPT = """
 import sys
 import numpy as np
 import jpeg_encoder_torch
-from jpeg_encoder_torch import config, constants, native, oracle, pipeline, scan, tables
+from jpeg_encoder_torch import config, constants, graphs, native, oracle, pipeline, scan, tables
 from jpeg_encoder_torch.io import bmp, jfif
 from jpeg_encoder_torch.kernels import _build, dct, entropy, pack
 from jpeg_encoder_torch.ops import color, sample

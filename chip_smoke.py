@@ -27,12 +27,17 @@ and 12 x 4K at 4:2:0, 4:2:2, 4:4:4, binDCT, --fast-dct, restart 120 and 7,
 optimize alone and with restart 120, a forced single-image retry; every
 file against the single-image card path, a few against the CPU path) and
 the per-block tier (K6 on every plane of the 1080p corpus, against K1 and
-K3), a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
+K3), each batch case three times with different content, its chunk
+programs (parallel/batch.program_keys) run eagerly, captured and replayed,
+every file against the eager card path (graphs.disabled()), a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
 2^31 bits, against the CPU path) and the stream engine
 (jpeg_encoder_torch.parallel.stream.encode_paths: 64 1080p and 15 4K BMP
-files to JFIF files, every file against encode_batch's, 8 also under
-restart and optimize; under the profiler every host-to-device copy must be
-pinned and one at least must overlap a kernel), the band path
+files to JFIF files, every file against encode_batch's, none of the run's
+own programs evicted, 8 also under restart and optimize, and, with a
+writer that sleeps through the first two chunks, under default and
+optimize against the eager card path; under the profiler every
+host-to-device copy must be pinned and one at least must overlap a
+kernel), the band path
 (jpeg_encoder_torch.parallel.tiled.encode_tiled: 1080p at 2, 3, 4 and 8
 bands, 4K at 4 and 8, 7680x4320 at 8, every ratio, binDCT, --fast-dct,
 restart 120 and 7, optimize, a one-band retry, the quirk fallback; every
@@ -83,7 +88,10 @@ path, every operand cache emptied between a key's first and second calls
 (the capture must build no operand), the capacity ladder past its first
 rung under a replayed key, an LRU eviction and re-capture, and encode_tiled's band programs at 4 and 8 bands
 on one share and on four; it prints each key's capture ms, pool MB and
-replays, and eager against replayed host, events and graph ms. With
+replays, and eager against replayed host, events and graph ms. The batch
+and stream phases print the same for the batch programs (encode_batch and
+the stream's ms an image, a chunk program's events and graph ms), and
+every path prints how many programs the cache evicted while it ran. With
 --parent DIR (a checkout of an earlier commit)
 it also builds DIR's sources of the kernels that differ and times both
 builds on the same operands. K5 also runs on adversarial operands (runs
@@ -816,14 +824,16 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
 
 
 def program_of(cuda, key):
-    """The cached program of a pipeline key on cuda (graphs.run puts the
-    stream and the thread in front of the caller's key), or None."""
+    """The cached program of a key on cuda that the calling thread owns on
+    the current stream (graphs.run puts them in front of the caller's
+    key), or None."""
+    import threading
+
     from jpeg_encoder_torch import graphs
 
-    for full, program in graphs.CACHE.programs(cuda):
-        if full[2:] == key:
-            return program
-    return None
+    full = (torch.cuda.current_stream(cuda).cuda_stream,
+            threading.get_ident(), *key)
+    return dict(graphs.CACHE.programs(cuda)).get(full)
 
 
 def replay_ms(cuda, program, calls: int = 10, reps: int = REPS) -> float:
@@ -1026,7 +1036,7 @@ def graph_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
                   {}, False)
         print(f"graphs eviction: {len(keys)} 3840x2160 keys, the cache "
               f"holds {len(held)} programs, {pool / 2**20:.1f} MB of pools "
-              f"(bound {graphs.MAX_POOL_BYTES / 2**20:.0f} MB, "
+              f"(bound {graphs.max_pool_bytes(cuda) / 2**20:.0f} MB, "
               f"{graphs.MAX_PROGRAMS} programs); quality {keys[0]} evicted, "
               f"captured again, exact ({card})", flush=True)
         # Bands: the front, statistics and encode programs of every run.
@@ -1365,18 +1375,50 @@ def k4_band_phase(cuda, images_1080) -> float:
     return float(worst)
 
 
+BATCH_PROGRAMS = ("batch", "batch_stats", "batch_custom")
+
+
+def program_lines(cuda, label: str, names, card) -> list[str]:
+    """A line for each cached program on cuda whose key is one of `names`
+    (parallel/batch.program_keys): its geometry, image count and the
+    rest of its key, capture ms, pool MB and replays."""
+    from jpeg_encoder_torch import graphs
+
+    lines = []
+    for full, program in graphs.CACHE.programs(cuda):
+        name, geom, *rest = full[2:]
+        if name not in names:
+            continue
+        lines.append(
+            f"{label} {name} {geom.width}x{geom.height} h{geom.h_factor}"
+            f"v{geom.v_factor} {tuple(str(r).split('.')[-1] for r in rest)}"
+            ": capture "
+            f"{program.capture_ms:.1f} ms, pool "
+            f"{program.pool_bytes / 2**20:.1f} MB, replays "
+            f"{program.replays} ({card})")
+    return lines
+
+
 def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
     """The batch path, driven (parallel.batch.encode_batch on the card): 32
-    1080p and 12 4K images at 4:2:0 (two and three chunks at the default
-    budget), 8 at 4:2:2 and 8 at 4:4:4, binDCT, --fast-dct, restart 120
-    and 7, optimize alone and with restart 120, and a chunk with one
-    member that overflows the shared capacity (retried alone). Every file
-    == the single-image card path's, a few == the CPU path's. Then ms per
-    image of the batch against a loop of encode_array on the same images.
-    Returns the batch path's launch counts."""
+    1080p and 12 4K images at 4:2:0 (chunks of 21 and 11, and of 5, 5 and
+    2, at the default budget: each short last chunk a key of its own), 8
+    at 4:2:2 and 8 at 4:4:4, binDCT, --fast-dct, restart 120 and 7,
+    optimize alone and with restart 120, and a chunk with one member that
+    overflows the shared capacity (retried alone). Each case three times,
+    with different content (rolled frames): its keys' eager call, capture
+    and replays (graphs.py; parallel/batch.program_keys). Every file ==
+    the eager card path's (graphs.disabled()), the first content's ==
+    the single-image card path's, a few == the CPU path's. Prints each
+    batch program's capture ms, pool MB and replays; then, eager against
+    replayed, encode_batch ms per image (numpy in, JFIF bytes out) and the
+    chunk program's events ms and graph ms (dispatch_uploaded on resident
+    frames: 21 and 11 1080p frames, 5 and 2 4K frames), and the device
+    ms per image of a chunk by operation. Returns the batch path's launch
+    counts."""
     import dataclasses
 
-    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch import graphs, pipeline
     from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
     from jpeg_encoder_torch.parallel import batch
@@ -1404,6 +1446,11 @@ def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
         ("4 x 1920x1080 retry (0.125 B/px, one noise member)", retry_images,
          EncoderConfig(capacity_bytes_per_pixel=0.125)),
     ]
+
+    def content(images, r):
+        """The r-th content of a case: its frames rolled along the width."""
+        return np.roll(images, 131 * r, axis=2) if r else images
+
     retried = []
     retry = batch._retry
 
@@ -1415,62 +1462,113 @@ def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
     results = []
     try:
         counts = counted("batch", lambda: results.extend(
-            batch.encode_batch(images, config, device=cuda)
-            for _, images, config in cases), BATCH_KERNELS)
+            [batch.encode_batch(content(images, r), config, device=cuda)
+             for r in range(3)] for _, images, config in cases),
+            BATCH_KERNELS)
+        check(len(retried) == 3 and all(
+            np.array_equal(rgb, content(retry_images, r)[1])
+            for r, rgb in enumerate(retried)),
+              f"the retry case retried {len(retried)} members, not the "
+              "noise one in each of 3 contents")
+        with graphs.disabled():
+            eager = [[batch.encode_batch(content(images, r), config,
+                                         device=cuda) for r in range(3)]
+                     for _, images, config in cases]
     finally:
         batch._retry = retry
-    check(len(retried) == 1 and np.array_equal(retried[0], noise),
-          f"the retry case retried {len(retried)} members, not the noise one")
     cpu_checked = ("32 x 1920x1080 4:2:0", "8 x 1920x1080 4:4:4",
                    "8 x 1920x1080 optimize restart 120")
-    for (label, images, config), files in zip(cases, results):
+    for (label, images, config), files, want in zip(cases, results, eager):
         geom = config.geometry(images.shape[2], images.shape[1])
         chunk = batch.chunk_size_images(geom)
-        for i, (rgb, got) in enumerate(zip(images, files)):
-            want = pipeline.encode_array(rgb, config, device=cuda).file_bytes
-            check(got == want, f"batch {label} member {i}: != encode_array "
-                  "on the card")
+        for r in range(3):
+            for i, (got, w) in enumerate(zip(files[r], want[r])):
+                check(got == w, f"batch {label} content {r} member {i}: "
+                      "replayed != eager card")
+        for i, (rgb, got) in enumerate(zip(images, files[0])):
+            want_one = pipeline.encode_array(rgb, config,
+                                             device=cuda).file_bytes
+            check(got == want_one, f"batch {label} member {i}: != "
+                  "encode_array on the card")
         note = ""
         if label in cpu_checked:
-            want = pipeline.encode_array(images[1], config, device="cpu")
-            check(files[1] == want.file_bytes,
+            want_cpu = pipeline.encode_array(images[1], config, device="cpu")
+            check(files[0][1] == want_cpu.file_bytes,
                   f"batch {label} member 1: != the CPU path")
             note = "; member 1 == CPU path"
-        print(f"batch {label}: {len(files)} files in "
-              f"{-(-len(files) // chunk)} chunks of <= {chunk}, each == "
-              f"encode_array on the card{note}", flush=True)
+        print(f"batch {label}: {len(files[0])} files in "
+              f"{-(-len(files[0]) // chunk)} chunks of <= {chunk}, 3 "
+              "contents, each replayed == eager card, the first == "
+              f"encode_array on the card{note} ({card})", flush=True)
+    for line in program_lines(cuda, "batch program", BATCH_PROGRAMS, card):
+        print(line, flush=True)
+        check("replays 0" not in line, f"a batch program never replayed: "
+              f"{line}")
 
     for label, images in (("1920x1080", hd), ("3840x2160", uhd)):
         geom = default.geometry(images.shape[2], images.shape[1])
-        chunk = images[: batch.chunk_size_images(geom)]
+        n = len(images)
+
+        def call_batch():
+            batch.encode_batch(images, default, device=cuda)
+
+        def loop():
+            for rgb in images:
+                pipeline.encode_array(rgb, default, device=cuda)
+
+        with graphs.disabled():
+            batch_eager, loop_eager = (host_ms(call_batch, reps=3),
+                                       host_ms(loop, reps=3))
+        batch_ms, loop_ms = host_ms(call_batch, reps=3), host_ms(loop, reps=3)
+        print(f"time batch {n} x {label} 4:2:0, numpy RGB in -> JFIF bytes "
+              f"out, ms/image eager / replayed: encode_batch "
+              f"{batch_eager / n:.3f} / {batch_ms / n:.3f}, loop of "
+              f"encode_array {loop_eager / n:.3f} / {loop_ms / n:.3f} "
+              f"({card})", flush=True)
+        full = batch.chunk_size_images(geom)
         cap = batch.chunk_capacity_bytes(default, geom)
-        z = batch.front_entries(batch.upload_chunk(chunk, cuda), default, geom)
+        for size in (full, n % full):
+            rgb = timing.resident(images[:size], cuda)
+            key = batch.program_keys(geom, default, cap, size)["batch"]
+
+            def call():
+                return batch.dispatch_uploaded(rgb, default, geom, cap)
+
+            with graphs.disabled():
+                eager_ms = (cuda_ms(call, reps=5),
+                            timing.graph_ms(call, cuda, calls=2, reps=5))
+            replayed = (cuda_ms(call, reps=5),
+                        replay_ms(cuda, program_of(cuda, key), calls=2,
+                                  reps=5))
+            print(f"batch {size} x {label} 4:2:0 chunk program "
+                  f"(dispatch_uploaded, resident frames), ms/image eager / "
+                  f"replayed: events {eager_ms[0] / size:.4f} / "
+                  f"{replayed[0] / size:.4f}, graph {eager_ms[1] / size:.4f}"
+                  f" / {replayed[1] / size:.4f}; a chunk: events "
+                  f"{eager_ms[0]:.4f} / {replayed[0]:.4f}, graph "
+                  f"{eager_ms[1]:.4f} / {replayed[1]:.4f} ({card})",
+                  flush=True)
+        chunk = images[:full]
+        z = batch.front_entries(timing.resident(chunk, cuda), default, geom)
         stages = {
             "dispatch_chunk": lambda: batch.dispatch_chunk(
                 chunk, default, geom, cap, device=cuda),
             "K4 alone": lambda: entropy_kernel.encode_entries(
                 z, geom, cap, entries_per_interval=geom.num_scan_entries),
         }
+        per_image = (lambda ms: None if ms is None else ms / len(chunk))
         parts = ", ".join(
             f"{k} events {cuda_ms(f, reps=5) / len(chunk):.4f}, busy "
-            f"{busy_ms(f, reps=5) / len(chunk):.4f}" for k, f in stages.items())
-        print(f"device ms/image, chunk of {len(chunk)} x {label} 4:2:0: "
-              f"{parts} ({card})", flush=True)
-        top = top_device_ops(stages["dispatch_chunk"])
-        print(f"device ms/image by operation, dispatch_chunk {len(chunk)} x "
-              f"{label}: " + "; ".join(f"{name[:60]} {ms / len(chunk):.4f}"
-                                       for name, ms in top)
+            f"{fmt(per_image(busy_ms(f, reps=5)))}"
+            for k, f in stages.items())
+        print(f"device ms/image, chunk of {len(chunk)} x {label} 4:2:0 "
+              f"(replayed): {parts} ({card})", flush=True)
+        with graphs.disabled():
+            top = top_device_ops(stages["dispatch_chunk"])
+        print(f"device ms/image by operation, eager dispatch_chunk "
+              f"{len(chunk)} x {label}: " + "; ".join(
+                  f"{name[:60]} {ms / len(chunk):.4f}" for name, ms in top)
               + f" ({card})", flush=True)
-        n = len(images)
-        batch_ms = host_ms(lambda: batch.encode_batch(images, default,
-                                                      device=cuda), reps=3)
-        loop_ms = host_ms(lambda: [pipeline.encode_array(rgb, default,
-                                                         device=cuda)
-                                   for rgb in images], reps=3)
-        print(f"time batch {n} x {label} 4:2:0: encode_batch "
-              f"{batch_ms / n:.3f} ms/image, loop of encode_array "
-              f"{loop_ms / n:.3f} ms/image, numpy RGB in -> JFIF bytes out "
-              f"({card})", flush=True)
     return counts
 
 
@@ -1514,12 +1612,20 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
     BMP files in, JFIF files written by emit): 64 1080p frames (three
     chunks of <= 21 at the 128 MiB budget) and 15 4K frames (three chunks
     of 5) at 4:2:0, corpus content, in one call (two dimension groups).
-    Every file == encode_batch's on the card; 8 of the 1080p files also
-    under restart 120, optimize, and optimize with restart 120, each ==
-    the single-image card file. Then ms/image and files/s of the stream
-    against a synchronous loop (read_batch -> encode_batch -> write, chunk
-    by chunk) over the same files, the loader's decode and the writer's
-    busy seconds, the pinned and pageable H2D rates, and, under the
+    Every file == encode_batch's on the card; that run starts from an
+    empty program cache and must evict none of the programs it captures
+    (each chunk's device work is parallel/batch's program, replayed from
+    a key's third call). 8 of the 1080p files also under restart 120,
+    optimize, and optimize with restart 120, each == the single-image card
+    file. Then the 64 1080p files with a writer that sleeps 50 ms a file
+    for the first two chunks, so that the main thread replays the key for
+    later chunks (and, with optimize, the loader the statistics) while the
+    writer holds one: under default and optimize, twice each, every file
+    == the eager card path's (graphs.disabled()). Then ms/image and
+    files/s of the stream, replayed and eager, against a synchronous loop
+    (read_batch -> encode_batch -> write, chunk by chunk) over the same
+    files, the loader's decode and the writer's busy seconds, the pinned
+    and pageable H2D rates, and, under the
     profiler, a check that every host-to-device copy of a 1080p stream run
     is a pinned copy and that at least one overlaps a kernel (of another
     chunk: a chunk's own kernels wait on its copies). Returns the stream
@@ -1528,7 +1634,7 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
 
     from torch.profiler import ProfilerActivity, profile
 
-    from jpeg_encoder_torch import pipeline
+    from jpeg_encoder_torch import graphs, pipeline
     from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch.io import bmp
     from jpeg_encoder_torch.parallel import batch, stream
@@ -1556,9 +1662,24 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
 
     written, runs = {}, []
     every = sets["1920x1080"][1] + sets["3840x2160"][1]
+    # An empty cache, so that an eviction in this run is one of the run's
+    # own programs.
+    graphs.CACHE.clear()
+    evictions = graphs.CACHE.evictions
     counts = counted("stream", lambda: runs.append(stream.encode_paths(
         every, default, writing(written), device=cuda)), ("realdct", "entropy"))
     check(runs[0].encoded == len(every), f"stream encoded {runs[0].encoded}")
+    held = graphs.CACHE.programs(cuda)
+    check(graphs.CACHE.evictions == evictions,
+          f"stream: the default run evicted "
+          f"{graphs.CACHE.evictions - evictions} of its own programs")
+    print(f"stream default run: {len(held)} programs captured, "
+          f"{sum(p.pool_bytes for _, p in held) / 2**20:.1f} MB of pools "
+          f"(bound {graphs.max_pool_bytes(cuda) / 2**20:.0f} MB), none "
+          f"evicted ({card})", flush=True)
+    check(all(p.replays for _, p in held), "stream: a program of the "
+          "default run was never replayed")
+    del held  # an evicted program's pool is freed once nothing holds it
     for label, (images, paths) in sets.items():
         geom = default.geometry(images.shape[2], images.shape[1])
         want = batch.encode_batch(images, default, device=cuda)
@@ -1585,6 +1706,31 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
         print(f"stream 8 x 1920x1080 4:2:0 {name}: every file == encode_array "
               "on the card", flush=True)
 
+    # A slow writer: the main thread replays the key for the next chunks
+    # (and, with optimize, the loader the statistics) while the writer
+    # still holds a chunk, so each leg must have cloned what another
+    # thread reads.
+    paths = sets["1920x1080"][1]
+    slow = 2 * batch.chunk_size_images(default.geometry(1920, 1080))
+    for name, config in (("default", default), ("optimize", optimize)):
+        with graphs.disabled():
+            want = {}
+            stream.encode_paths(paths, config, want.__setitem__, device=cuda)
+        for run in range(2):
+            got = {}
+
+            def emit(path, data):
+                if len(got) < slow:
+                    time.sleep(0.05)
+                got[path] = data
+
+            stream.encode_paths(paths, config, emit, device=cuda)
+            check(got == want, f"stream {name} with a slow writer (run "
+                  f"{run}): != the eager card path")
+        print(f"stream {len(paths)} x 1920x1080 4:2:0 {name}, the writer "
+              f"sleeping 50 ms a file for the first {slow} files, two runs: "
+              "every file == the eager card path", flush=True)
+
     for label, (images, paths) in sets.items():
         geom = default.geometry(images.shape[2], images.shape[1])
         chunk = batch.chunk_size_images(geom)
@@ -1604,10 +1750,17 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
                 for path, data in zip(part, files):
                     emit(path, data)
 
-        # Turns: stream, loop, loop, stream; each the mean of two medians.
-        s1, l1, l2, s2 = (host_ms(f, reps=3) for f in
-                          (run_stream, run_loop, run_loop, run_stream))
+        def run_eager():
+            with graphs.disabled():
+                run_stream()
+
+        # Turns: stream, eager, loop, loop, eager, stream; each the mean of
+        # two medians.
+        s1, e1, l1, l2, e2, s2 = (host_ms(f, reps=3) for f in (
+            run_stream, run_eager, run_loop, run_loop, run_eager,
+            run_stream))
         stream_ms, loop_ms = (s1 + s2) / 2 / n, (l1 + l2) / 2 / n
+        eager_ms = (e1 + e2) / 2 / n
         last = stream_runs[-1]
         pinned, pageable = h2d_rates(cuda, (chunk, geom.height, geom.width, 3))
         part = paths[:chunk]
@@ -1625,7 +1778,8 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
         print(f"time stream {n} x {label} 4:2:0 BMP files -> JFIF files: "
               f"encode_paths {stream_ms:.3f} ms/image ({1e3 / stream_ms:.1f} "
               f"files/s; last run decode {last.decode_seconds:.3f} s, write "
-              f"{last.write_seconds:.3f} s of {last.seconds:.3f} s), "
+              f"{last.write_seconds:.3f} s of {last.seconds:.3f} s), eager "
+              f"(graphs.disabled()) {eager_ms:.3f} ms/image, "
               f"synchronous loop read_batch -> encode_batch -> write "
               f"{loop_ms:.3f} ms/image ({1e3 / loop_ms:.1f} files/s); H2D of "
               f"a {chunk}-image chunk: pinned {pinned:.2f} GB/s, pageable "
@@ -1650,6 +1804,8 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
           f"host-to-device copies, all pinned ({sorted(set(names))}); "
           f"{overlapping} overlap a kernel of another chunk, "
           f"{overlap_us:.0f} us in all ({card})", flush=True)
+    for line in program_lines(cuda, "stream program", BATCH_PROGRAMS, card):
+        print(line, flush=True)
     return counts
 
 
@@ -2651,14 +2807,22 @@ def counted(path: str, drive, required) -> dict[str, int]:
     unless every kernel in `required` launched. A drive that runs the path
     in processes of its own returns the launches they reported (run_cli),
     which are added in."""
+    from jpeg_encoder_torch import graphs
+
     kernels = all_kernels()
     for k in kernels:
         k.launches = 0
+    evictions = graphs.CACHE.evictions
     children = drive() or {}
     counts = {k.name: k.launches + children.get(k.name, 0) for k in kernels}
     check(all(counts[name] for name in required),
           f"a kernel of the {path} path never ran: {counts}")
-    print(f"{path} launches: {counts}", flush=True)
+    pools = sum(p.pool_bytes for _, p in graphs.CACHE.programs(
+        torch.device("cuda", torch.cuda.current_device())))
+    print(f"{path} launches: {counts}; graph programs evicted "
+          f"{graphs.CACHE.evictions - evictions}; pools held "
+          f"{pools / 2**30:.2f} GiB, memory reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
     return counts
 
 

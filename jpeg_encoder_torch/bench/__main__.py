@@ -6,7 +6,12 @@ Times parallel/batch.dispatch_uploaded (the front, K1, the scan marshal and
 K4; nothing fetched) on a batch of 8 corpus frames of 1088x1920 at 4:2:0
 with RealDCT, uploaded once and resident on the card: the counterpart of
 bench.py's vmapped encode_core, in Mpixel/s of input pixels, by the window
-timer (bench/timing.py). After the timing, outside the window, it checks
+timer (bench/timing.py). The call runs the chunk's program as a replayed
+CUDA graph (graphs.py; the window's two warm calls are the key's eager
+call and its capture), which first copies the resident frames into the
+program's buffer: one device copy more a call than the eager path, timed
+again under graphs.disabled() (the "_eager" keys). After the timing,
+outside the window, it checks
 that every payload fitted the batch's capacity and that one image's file
 (fetch_chunk + assemble_chunk) equals pipeline.encode_array's on the CPU.
 
@@ -63,14 +68,18 @@ def main(argv: list[str] | None = None) -> int:
     def encode():
         return batch.dispatch_uploaded(rgb, config, geom, capacity)
 
-    win = timing.window(encode, args.min_seconds, timing.clock_for(device))
+    win, eager = timing.replayed_and_eager(lambda: timing.window(
+        encode, args.min_seconds, timing.clock_for(device)))
     check_batch(images, rgb, config, geom, capacity, encode())
     pixels = args.batch * args.height * args.width
     line = {"metric": METRIC, **win.rate(pixels), "unit": "Mpixel/s",
-            "vs_baseline": None, **win.per_call_ms(), "card": card}
+            "vs_baseline": None, **win.per_call_ms(),
+            **timing.eager_keys(eager, pixels), "card": card}
     timing.log(f"steady state: {win.median * 1e3:.4f} ms/batch (windows "
                f"{win.min * 1e3:.4f}-{win.max * 1e3:.4f}, {win.iters} calls "
-               f"each), {line['value']:.1f} Mpixel/s; byte check passed")
+               f"each), {line['value']:.1f} Mpixel/s replayed; eager "
+               f"{eager.median * 1e3:.4f} ms/batch, "
+               f"{line['value_eager']:.1f} Mpixel/s; byte check passed")
     timing.emit(line)
     return 0
 

@@ -15,6 +15,10 @@ the two-pass cost (the statistics pass on the resident batch,
 batch.optimized_stats_uploaded; its histograms fetched and each image's
 tables built on the host, build_chunk_luts; the encode pass,
 dispatch_optimized_encode) and the encode pass alone with those tables.
+Each program runs as a replayed CUDA graph (graphs.py; a replay first
+copies its inputs, the resident frames or the entries and tables, into the
+program's buffers: one device copy more a call than the eager path), and
+again eagerly under graphs.disabled(): the "_eager" keys.
 
 Markdown rows go to stdout, then one JSON line.
 """
@@ -115,36 +119,50 @@ def main(argv: list[str] | None = None) -> int:
         line = {"metric": "encode_cell_throughput", **label(config),
                 "unit": "Mpixel/s"}
         if config.optimize_huffman:
-            full, encode = time_optimized(rgb, config, args.min_seconds,
-                                          clock)
+            (full, encode), (full_eager, encode_eager) = (
+                timing.replayed_and_eager(lambda: time_optimized(
+                    rgb, config, args.min_seconds, clock)))
             line.update(two_pass=full.rate(pixels)["value"],
                         two_pass_ms=full.median * 1e3,
-                        **encode.rate(pixels), **encode.per_call_ms())
-            print(f"{' '.join(args.cell)}: two-pass {full.median * 1e3:.4f} ms/batch "
-                  f"{line['two_pass']:.1f} Mpix/s | encode pass "
+                        two_pass_eager=full_eager.rate(pixels)["value"],
+                        two_pass_ms_eager=full_eager.median * 1e3,
+                        **encode.rate(pixels), **encode.per_call_ms(),
+                        **timing.eager_keys(encode_eager, pixels))
+            print(f"{' '.join(args.cell)}: two-pass {full.median * 1e3:.4f} "
+                  f"ms/batch {line['two_pass']:.1f} Mpix/s (eager "
+                  f"{full_eager.median * 1e3:.4f}) | encode pass "
                   f"{encode.median * 1e3:.4f} ms/batch "
-                  f"{line['value']:.1f} Mpix/s ({card})", flush=True)
+                  f"{line['value']:.1f} Mpix/s (eager "
+                  f"{encode_eager.median * 1e3:.4f}) ({card})", flush=True)
         else:
-            win = time_fixed(rgb, config, args.min_seconds, clock)
-            line.update(**win.rate(pixels), **win.per_call_ms())
-            print(f"{' '.join(args.cell)}: {win.median * 1e3:.4f} ms/batch {line['value']:.1f} "
-                  f"Mpix/s ({card})", flush=True)
+            win, eager = timing.replayed_and_eager(lambda: time_fixed(
+                rgb, config, args.min_seconds, clock))
+            line.update(**win.rate(pixels), **win.per_call_ms(),
+                        **timing.eager_keys(eager, pixels))
+            print(f"{' '.join(args.cell)}: {win.median * 1e3:.4f} ms/batch "
+                  f"{line['value']:.1f} Mpix/s (eager "
+                  f"{eager.median * 1e3:.4f} ms/batch "
+                  f"{line['value_eager']:.1f} Mpix/s) ({card})", flush=True)
         timing.emit({**line, "card": card})
         return 0
 
-    print("| ratio | algorithm | Mpixel/s | ms/batch (min-max) |")
+    print("| ratio | algorithm | Mpixel/s replayed / eager | ms/batch "
+          "replayed (min-max) / eager |")
     print("|---|---|---|---|", flush=True)
     rows = []
     for ratio in RATIOS:
         for algorithm in (DctAlgorithm.REAL_DCT, DctAlgorithm.BIN_DCT):
             config = EncoderConfig(subsampling_ratio=ratio,
                                    dct_algorithm=algorithm)
-            win = time_fixed(rgb, config, args.min_seconds, clock)
-            row = {**label(config), **win.rate(pixels), **win.per_call_ms()}
+            win, eager = timing.replayed_and_eager(lambda: time_fixed(
+                rgb, config, args.min_seconds, clock))
+            row = {**label(config), **win.rate(pixels), **win.per_call_ms(),
+                   **timing.eager_keys(eager, pixels)}
             rows.append(row)
             print(f"| {row['ratio']} | {row['algorithm']} | "
-                  f"{row['value']:.1f} | {row['ms']:.4f} "
-                  f"({row['ms_min']:.4f}-{row['ms_max']:.4f}) |", flush=True)
+                  f"{row['value']:.1f} / {row['value_eager']:.1f} | "
+                  f"{row['ms']:.4f} ({row['ms_min']:.4f}-{row['ms_max']:.4f})"
+                  f" / {row['ms_eager']:.4f} |", flush=True)
     timing.emit({"metric": "encode_throughput_matrix_1080p",
                  "unit": "Mpixel/s", "rows": rows, "card": card})
     return 0

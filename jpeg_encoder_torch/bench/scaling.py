@@ -14,7 +14,11 @@ stream, then joined to the timing stream. --shares N names the one device
 (or the CPU) N times through parallel/devices.resolve, the counterpart of
 bench_scaling.py's --virtual-devices: shares of one card measure what the
 shares cost, not a speed-up. All by the window timer; 1088x1920 RealDCT
-4:2:0. A markdown table, then one JSON line.
+4:2:0. Each share's program runs as a replayed CUDA graph (graphs.py; a
+replay first copies the resident frames into the program's buffer: one
+device copy more a call than the eager path), and again eagerly under
+graphs.disabled(): the "_eager" keys of each row. A markdown table, then
+one JSON line.
 """
 
 from __future__ import annotations
@@ -79,22 +83,25 @@ def main(argv: list[str] | None = None) -> int:
     frames = timing.corpus_batch(args.height, args.width, most)
     if args.batch_curve:
         mode = "batch-curve"
-        print("| batch | Mpix/s | Mpix/s per image | vs linear |")
+        print("| batch | Mpix/s replayed / eager | Mpix/s per image | vs "
+              "linear |")
         print("|---|---|---|---|")
         base = None
         for size in (1, 2, 4, 8):
-            win = timing.window(
-                sharded_dispatch(frames[:size], config, geom,
-                                 devices_lib.shares(device)),
-                args.min_seconds, clock)
+            dispatch = sharded_dispatch(frames[:size], config, geom,
+                                        devices_lib.shares(device))
+            win, eager = timing.replayed_and_eager(
+                lambda: timing.window(dispatch, args.min_seconds, clock))
             mpix = win.rate(size * image_pixels)["value"]
             base = base or mpix
             rows.append({"batch": size, "value": mpix,
                          "per_image": mpix / size,
                          "vs_linear": mpix / (base * size),
-                         **win.per_call_ms()})
-            print(f"| {size} | {mpix:.1f} | {mpix / size:.1f} | "
-                  f"{mpix / (base * size):.1%} |", flush=True)
+                         **win.per_call_ms(),
+                         **timing.eager_keys(eager, size * image_pixels)})
+            print(f"| {size} | {mpix:.1f} / {rows[-1]['value_eager']:.1f} | "
+                  f"{mpix / size:.1f} | {mpix / (base * size):.1%} |",
+                  flush=True)
     else:
         if args.shares:
             mode = f"shares of {device}"
@@ -105,22 +112,23 @@ def main(argv: list[str] | None = None) -> int:
                            if device.type == "cuda" else [device])
         counts = [n for n in (1, 2, 4, 8, 16, 32) if n <= len(present)]
         print(f"| {'shares' if args.shares else 'cards'} | aggregate "
-              "Mpix/s | per-device Mpix/s | efficiency |")
+              "Mpix/s replayed / eager | per-device Mpix/s | efficiency |")
         print("|---|---|---|---|")
         base = None
         for n in counts:
             size = n * args.per_device_batch
             shares = devices_lib.shares(device, present[:n])
-            win = timing.window(sharded_dispatch(frames[:size], config, geom,
-                                                 shares),
-                                args.min_seconds, clock)
+            dispatch = sharded_dispatch(frames[:size], config, geom, shares)
+            win, eager = timing.replayed_and_eager(
+                lambda: timing.window(dispatch, args.min_seconds, clock))
             mpix = win.rate(size * image_pixels)["value"]
             base = base or mpix
             rows.append({"devices": n, "value": mpix, "per_device": mpix / n,
                          "efficiency": mpix / (base * n),
-                         **win.per_call_ms()})
-            print(f"| {n} | {mpix:.1f} | {mpix / n:.1f} | "
-                  f"{mpix / (base * n):.1%} |", flush=True)
+                         **win.per_call_ms(),
+                         **timing.eager_keys(eager, size * image_pixels)})
+            print(f"| {n} | {mpix:.1f} / {rows[-1]['value_eager']:.1f} | "
+                  f"{mpix / n:.1f} | {mpix / (base * n):.1%} |", flush=True)
         if args.shares:
             print("(shares of one device: the rows measure what the shares "
                   "cost, not a speed-up)", flush=True)

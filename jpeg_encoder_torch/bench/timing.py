@@ -37,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from jpeg_encoder_torch import graphs
 from jpeg_encoder_torch.utils import corpus
 
 WARM_CALLS = 2
@@ -166,6 +167,22 @@ def graph_ms(fn, device: torch.device, calls: int = 10,
             times.append(clock.stop() * 1e3 / calls)
         graph.reset()
         return statistics.median(times)
+
+
+def replayed_and_eager(measure):
+    """measure() with the device programs replayed (graphs.py), then again
+    with them eager (graphs.disabled()) -> (replayed, eager)."""
+    replayed = measure()
+    with graphs.disabled():
+        return replayed, measure()
+
+
+def eager_keys(win: Window, units: float) -> dict:
+    """The eager window's rate of `units` a call and its per-call ms under
+    "_eager" keys (value_eager, ms_eager, ...), beside the replayed
+    window's keys."""
+    return {f"{k}_eager": v
+            for k, v in {**win.rate(units), **win.per_call_ms()}.items()}
 
 
 def card_line(device: torch.device) -> str:

@@ -15,8 +15,9 @@ returns its outputs (tensors in dicts or tuples), reading nothing back. The
 key holds everything that fixes the program's work and shapes (what the JAX
 key holds: geometry, DCT flavour, quality, capacity, restart interval,
 validate, coefficients, packer; for bands the live rows or entries and the
-band count); run adds the stream the program is replayed on and the calling
-thread, and keeps one cache a device. For each key:
+band count; for a batch the exact image count); run adds the stream the
+program is replayed on and its owner (the calling thread unless the caller
+names one), and keeps one cache a device. For each key:
 
 - the first call runs fn eagerly and returns its result;
 - the second call copies the inputs into static buffers that the program
@@ -32,12 +33,18 @@ leading rows: its buffer is zeroed once, and each call copies the input
 into its top rows.
 
 A replay returns the same output tensors every time, and the next replay of
-its key overwrites them. The stream and thread in the key keep every other
+its key overwrites them. The stream and owner in the key keep every other
 caller off a program whose outputs a caller still reads; a caller reads them
-before its next call of that key, and gives distinct keys to calls whose
-outputs it holds at once (encode_array fetches its result; the band path
-keys each run's programs by the run's first band and collects every run's
-rows before it returns).
+before its next call of that key, gives distinct keys to calls whose
+outputs it holds at once, or clones what it holds past that call
+(encode_array fetches its result; the band path keys each run's programs by
+the run's first band and collects every run's rows before it returns;
+encode_batch names each share an owner of its own and fetches a chunk
+before the next; the stream engine clones the outputs its other threads
+read). An owner other than the calling thread is for callers whose threads
+come and go (the stream engine's loader, new in every call): one that no
+two threads use at once, so a later call replays what an earlier one
+captured.
 
 Capture holds a process-wide lock (one capture at a time) and runs with
 capture_error_mode="thread_local", so that another thread's pinned
@@ -45,8 +52,11 @@ allocation or blocking copy does not abort it. Every operand cache lookup
 from the warm-up to the end of the capture is pinned: the capture gets the
 very operand the warm-up got, whatever the caches evicted meanwhile, and
 the program keeps it alive, so an operand evicted from its cache is not
-freed under a replay that reads it. Capture neither synchronizes the device
-nor empties the allocator's caches (torch.cuda.graph's entry does both).
+freed under a replay that reads it. Capture does not synchronize the device
+(torch.cuda.graph's entry does), and empties the allocator's caches only
+when less than a quarter of the card's memory is free: the allocator frees
+nothing while a capture is underway, and evicted programs' pools stay in
+its cache until it is emptied.
 Nothing falls back: a capture or replay that fails raises. A kernel
 launched inside a capture is counted at each replay, not at capture
 (kernels/_build.recording), so Kernel.launches counts what ran on the card.
@@ -55,8 +65,8 @@ whole calls), fn runs as it is, into that graph.
 
 The cache is an LRU on each device. A graph keeps its private memory pool
 (one call's intermediates) while it lives, so the bound is on the pools'
-bytes, MAX_POOL_BYTES, as well as on the count, MAX_PROGRAMS; an evicted key
-starts again with an eager call.
+bytes, max_pool_bytes(device) (a quarter of the card's memory), as well as
+on the count, MAX_PROGRAMS; an evicted key starts again with an eager call.
 
 CPU tensors never touch a graph. disabled() runs the eager card path in the
 calling thread (chip_smoke.py and the bench modules time it beside the
@@ -70,6 +80,7 @@ import contextlib
 import contextvars
 import dataclasses
 import functools
+import sys
 import threading
 import time
 
@@ -78,13 +89,16 @@ import torch
 from jpeg_encoder_torch.kernels import _build
 from jpeg_encoder_torch.parallel import devices as devices_lib
 
-# Bounds of one device's cache. chip_smoke.py's graph phase measured the
-# pools on an H100 80GB (PERF.md §5): 110 MB a 1920x1080 4:2:0 program,
-# 386 MB a 3840x2160 one, more where optimize's statistics (402 and 962 MB)
-# or the assemble packer (402 and 1618 MB) hold int64 slots. 4 GiB holds
-# ~37 programs of the first kind or ~10 of the second, 5% of the card's
-# memory. MAX_PROGRAMS is the JAX caches' count.
-MAX_POOL_BYTES = 4 << 30
+# Bounds of one device's cache. chip_smoke.py measured the pools on an
+# H100 80GB (PERF.md §5): 110 MB a 1920x1080 4:2:0 image's program, 386 MB
+# a 3840x2160 one, more where optimize's statistics (402 and 962 MB) or the
+# assemble packer (402 and 1618 MB) hold int64 slots; a batch chunk's
+# program up to its image count times as much (2012 MB for 21 1080p
+# images, 1916 MB for 5 4K ones, 3548 MB for the statistics of 21 1080p
+# ones). The stream engine's programs for two geometries, a full and a
+# short chunk each, on four shares of one card take ~16 GB: a quarter of
+# the card's memory holds them. MAX_PROGRAMS is the JAX caches' count.
+POOL_SHARE = 4  # the pools may hold 1 / POOL_SHARE of a card's memory
 MAX_PROGRAMS = 64
 MAX_SEEN = 256  # keys called once, waiting for their second call
 
@@ -187,6 +201,15 @@ class Program:
         return self.outputs
 
 
+def max_pool_bytes(device: torch.device) -> int:
+    """The bytes of graph pools a device's cache holds: a quarter of the
+    card's memory. A CPU device holds stand-in programs only (in tests):
+    no bound there but the count."""
+    if device.type != "cuda":
+        return sys.maxsize
+    return torch.cuda.get_device_properties(device).total_memory // POOL_SHARE
+
+
 def static_inputs(inputs: dict, device: torch.device,
                   pad: dict | None = None) -> tuple[dict, dict]:
     """Buffers on device holding the inputs, those named in pad with zero
@@ -209,6 +232,12 @@ def record(fn, buffers: dict, device: torch.device):
     with torch.cuda.device(device):
         stream = devices_lib.stream(device, "capture", 0)
         stream.wait_stream(torch.cuda.current_stream(device))
+        free, total = torch.cuda.mem_get_info(device)
+        if free < total // POOL_SHARE:
+            # While a capture is underway the allocator returns no cached
+            # memory to the card, and an evicted program's pool stays
+            # cached until the caches are emptied: make room first.
+            torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         start = time.perf_counter()
         with _build.recording() as launches, torch.cuda.stream(stream):
@@ -241,9 +270,11 @@ def capture(fn, inputs: dict, device: torch.device, pad: dict | None = None,
 
 class Cache:
     """Programs by key, an LRU on each device (module docstring); capture is
-    the function that makes a Program (a test may pass its own)."""
+    the function that makes a Program (a test may pass its own), and
+    max_pool_bytes, where given, bounds every device's pools in place of
+    max_pool_bytes(device)."""
 
-    def __init__(self, capture=capture, max_pool_bytes: int = MAX_POOL_BYTES,
+    def __init__(self, capture=capture, max_pool_bytes: int | None = None,
                  max_programs: int = MAX_PROGRAMS):
         self._capture = capture
         self.max_pool_bytes = max_pool_bytes
@@ -275,18 +306,25 @@ class Cache:
                 program = self._capture(fn, inputs, device, pad)
             with self._lock:
                 programs[key] = program
-                self._evict(programs)
+                self._evict(programs, device)
         return program.replay(inputs)
 
-    def _evict(self, programs: collections.OrderedDict) -> None:
+    def _evict(self, programs: collections.OrderedDict,
+               device: torch.device) -> None:
         """Drop the least recently used programs past the bounds (never the
         newest)."""
         while len(programs) > 1 and (
                 len(programs) > self.max_programs
                 or sum(p.pool_bytes for p in programs.values())
-                > self.max_pool_bytes):
+                > self._pool_bound(device)):
             programs.popitem(last=False)
             self.evictions += 1
+
+    def _pool_bound(self, device: torch.device) -> int:
+        """The bytes of pools device's programs may hold."""
+        if self.max_pool_bytes is None:
+            return max_pool_bytes(device)
+        return self.max_pool_bytes
 
     def programs(self, device: torch.device) -> list:
         """(key, Program) of device, least recently used first."""
@@ -318,13 +356,16 @@ def eager(fn, inputs: dict, device: torch.device, pad: dict | None = None):
 
 
 def run(key: tuple, fn, inputs: dict, device: torch.device,
-        pad: dict | None = None):
+        pad: dict | None = None, owner=None):
     """fn(**inputs) on device, through the cache of programs on a card
     (module docstring), eagerly on the CPU. inputs: name -> tensor, on the
-    host or on device; pad: name -> the rows fn takes that input at."""
+    host or on device; pad: name -> the rows fn takes that input at;
+    owner: who reads the outputs until its next call of the key (a
+    hashable no two threads use at once; the calling thread by default)."""
     if not _graphed(device):
         return eager(fn, inputs, device, pad)
     stream = (torch.cuda.current_stream(device).cuda_stream
               if device.type == "cuda" else None)
-    return CACHE.run((stream, threading.get_ident(), *key), fn, inputs,
-                     device, pad)
+    if owner is None:
+        owner = threading.get_ident()
+    return CACHE.run((stream, owner, *key), fn, inputs, device, pad)

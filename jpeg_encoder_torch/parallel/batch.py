@@ -20,16 +20,27 @@ row, an image or a restart interval, so they bound neither). With
 contiguous shares, one an entry, as P(DATA_AXIS) splits the JAX batch:
 each share is uploaded and enqueued on its own card and stream before any
 share is fetched, and the files come back in input order. Each share is
-dispatch_chunk (upload_chunk, a synchronous pageable copy, then
-dispatch_uploaded: device work on the current stream, enqueued, nothing
+dispatch_chunk (device work on the current stream, enqueued, nothing
 synchronised; parallel/stream.py uploads on its own and calls
-dispatch_uploaded), fetch_chunk (one copy of the bit
-counts, then one copy of every row up to the longest payload) and
-assemble_chunk (JFIF files on the host; a member whose payload overflowed
-the chunk's shared capacity is re-encoded alone through
-pipeline.encode_array from the next capacity rung). Optimized Huffman runs
-the two passes over each share: statistics (one histogram), tables on the
-host, then the encode of the same scan entries with per-image tables.
+dispatch_uploaded), fetch_chunk (one copy of the bit counts, then one copy
+of every row up to the longest payload) and assemble_chunk (JFIF files on
+the host; a member whose payload overflowed the chunk's shared capacity is
+re-encoded alone through pipeline.encode_array from the next capacity
+rung). Optimized Huffman runs the two passes over each share: statistics
+(one histogram), tables on the host, then the encode of the same scan
+entries with per-image tables.
+
+The device work of a chunk is one program (two with optimized Huffman),
+run through graphs.run under program_keys, as the JAX package runs its
+compiled_batch_encoder, compiled_batch_stats_encoder and
+compiled_batch_custom_encoder: on a card the first call of a key runs
+eagerly, the second captures a CUDA graph, later calls copy their inputs
+into its buffers and replay it (graphs.disabled() keeps it eager). The key
+holds the exact image count (no power-of-two ladder: a short last chunk is
+a key of its own). A replay overwrites its key's outputs: encode_batch
+fetches a chunk before its next call of the key, each share under an
+owner of its own (graphs.run's owner; on a card each share has its own
+stream as well).
 
 Files are byte-identical to pipeline.encode_array's for every config. Like
 the JAX package's batch, this path does not check config.validate (only
@@ -40,10 +51,12 @@ CPU, where the kernels' plain versions run.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
-from jpeg_encoder_torch import pipeline
+from jpeg_encoder_torch import graphs, pipeline
 from jpeg_encoder_torch.config import EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.io import jfif
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
@@ -117,12 +130,24 @@ def chunk_capacity_bytes(config: EncoderConfig, geom: FrameGeometry) -> int:
     )
 
 
-def upload_chunk(images: np.ndarray, device: str | torch.device) -> torch.Tensor:
-    """(B, H, W, 3) uint8 host images -> the same on `device`, copied
-    synchronously from pageable memory (parallel/stream.py stages its
-    uploads in pinned memory on a copy stream instead)."""
-    return torch.as_tensor(np.ascontiguousarray(images, dtype=np.uint8),
-                           device=device)
+def program_keys(geom: FrameGeometry, config: EncoderConfig, capacity: int,
+                 images: int) -> dict[str, tuple]:
+    """The keys (graphs.run) of the device programs of a chunk of `images`
+    images of geom (the exact count) at the chunk's shared capacity:
+    "batch" (rgb -> payloads and bits: dispatch_uploaded) and, for
+    optimized Huffman, "batch_stats" (rgb -> entries and symbol counts:
+    optimized_stats_uploaded) then "batch_custom" (entries and each image's
+    tables, program inputs -> payloads and bits:
+    dispatch_optimized_encode). Each holds what changes its program, as the
+    JAX package's compiled_batch_* keys do (the mesh aside: a share is the
+    caller's stream and owner); the batch neither validates nor takes a
+    packer."""
+    front = (geom, *pipeline.dct_key(config), config.restart_interval,
+             images)
+    return {"batch": ("batch", *front, capacity),
+            "batch_stats": ("batch_stats", *front),
+            "batch_custom": ("batch_custom", geom, config.restart_interval,
+                             capacity, images)}
 
 
 def front_entries(rgb: torch.Tensor, config, geom) -> torch.Tensor:
@@ -150,17 +175,51 @@ def _encode_entries(z, config, geom, capacity, luts=None):
     return data.reshape(batch, -1, capacity), bits.reshape(batch, -1)
 
 
+def _host(images) -> torch.Tensor:
+    """(B, H, W, 3) uint8 host images as a CPU tensor (no copy where they
+    are contiguous uint8)."""
+    return torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
+
+
+def _batch(rgb, config, geom, capacity, device, owner):
+    """The "batch" program of rgb (on the host or on device) on device."""
+
+    def program(rgb):
+        return _encode_entries(front_entries(rgb, config, geom), config,
+                               geom, capacity)
+
+    key = program_keys(geom, config, capacity, rgb.shape[0])["batch"]
+    return graphs.run(key, program, {"rgb": rgb}, device, owner=owner)
+
+
+def _stats(rgb, config, geom, device, owner):
+    """The "batch_stats" program of rgb (on the host or on device) on
+    device."""
+
+    def program(rgb):
+        z = front_entries(rgb, config, geom)
+        hists = entropy_ops.symbol_histograms(z, geom,
+                                              config.restart_interval)
+        return z, hists.reshape(-1, 4, 256)
+
+    key = program_keys(geom, config, 0, rgb.shape[0])["batch_stats"]
+    return graphs.run(key, program, {"rgb": rgb}, device, owner=owner)
+
+
 def dispatch_chunk(
     images: np.ndarray,
     config: EncoderConfig,
     geom: FrameGeometry,
     capacity: int,
     device: str | torch.device = "cuda",
+    owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Upload one chunk and enqueue its encode: dispatch_uploaded over
-    upload_chunk's copy."""
-    return dispatch_uploaded(upload_chunk(images, device), config, geom,
-                             capacity)
+    """Enqueue the encode of one (B, H, W, 3) uint8 host chunk on `device`:
+    dispatch_uploaded's program, given the host chunk, so its one upload
+    (a synchronous copy from pageable memory) lands in the program's
+    buffer. owner: graphs.run's."""
+    return _batch(_host(images), config, geom, capacity,
+                  devices_lib.resolve_device(device), owner)
 
 
 def dispatch_uploaded(
@@ -168,14 +227,17 @@ def dispatch_uploaded(
     config: EncoderConfig,
     geom: FrameGeometry,
     capacity: int,
+    owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Enqueue the encode of one uploaded (B, H, W, 3) uint8 chunk on rgb's
     device (on the current stream): (payloads, bit lengths) as device
     tensors, (B, capacity) and (B,), or (B, n_int, capacity) and (B,
     n_int) with restart markers. Nothing is synchronised, so the caller can
-    overlap other work and fetch later (fetch_chunk)."""
-    return _encode_entries(front_entries(rgb, config, geom), config, geom,
-                           capacity)
+    overlap other work and fetch later (fetch_chunk). One program (the
+    "batch" key, graphs.run with `owner`): a replay first copies rgb into
+    the program's buffer, a device-to-device copy, and its outputs are
+    overwritten by the key's next replay."""
+    return _batch(rgb, config, geom, capacity, rgb.device, owner)
 
 
 def fetch_chunk(
@@ -249,11 +311,12 @@ def _encode_chunk(images, config, geom, shares) -> list[bytes]:
     retried on its share's card)."""
     capacity = chunk_capacity_bytes(config, geom)
     parts = _shares_of(images, shares)
+    thread = threading.get_ident()
     enqueued = []
-    for share, part in parts:
+    for k, (share, part) in enumerate(parts):
         with share.on():
             enqueued.append(dispatch_chunk(part, config, geom, capacity,
-                                           share.device))
+                                           share.device, (thread, k)))
     files = []
     for (share, part), (payloads, bits) in zip(parts, enqueued):
         with share.on():
@@ -270,18 +333,19 @@ def _encode_chunk_optimized(images, config, geom, shares) -> list[bytes]:
     fetch and assembly."""
     capacity = chunk_capacity_bytes(config, geom)
     parts = _shares_of(images, shares)
+    thread = threading.get_ident()
     stats = []
-    for share, part in parts:
+    for k, (share, part) in enumerate(parts):
         with share.on():
             stats.append(dispatch_optimized_stats(part, config, geom,
-                                                  share.device))
+                                                  share.device, (thread, k)))
     enqueued = []
-    for (share, _), (z, hists) in zip(parts, stats):
+    for k, ((share, _), (z, hists)) in enumerate(zip(parts, stats)):
         with share.on():
             specs_list, dc_luts, ac_luts = build_chunk_luts(
                 hists.cpu().numpy())
             enqueued.append((specs_list, *dispatch_optimized_encode(
-                z, dc_luts, ac_luts, config, geom, capacity)))
+                z, dc_luts, ac_luts, config, geom, capacity, (thread, k))))
     files = []
     for (share, part), (specs_list, payloads, bits) in zip(parts, enqueued):
         with share.on():
@@ -297,23 +361,26 @@ def dispatch_optimized_stats(
     config: EncoderConfig,
     geom: FrameGeometry,
     device: str | torch.device = "cuda",
+    owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Upload one optimize chunk and enqueue its statistics pass:
-    optimized_stats_uploaded over upload_chunk's copy."""
-    return optimized_stats_uploaded(upload_chunk(images, device), config,
-                                    geom)
+    """Enqueue the statistics pass of one optimize host chunk on `device`:
+    optimized_stats_uploaded's program, given the host chunk (its one
+    upload lands in the program's buffer)."""
+    return _stats(_host(images), config, geom,
+                  devices_lib.resolve_device(device), owner)
 
 
 def optimized_stats_uploaded(
-    rgb: torch.Tensor, config: EncoderConfig, geom: FrameGeometry
+    rgb: torch.Tensor, config: EncoderConfig, geom: FrameGeometry,
+    owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Enqueue the statistics pass of one uploaded optimize chunk: (the
     chunk's (B * E, 64) scan entries, which the encode pass reuses, and
     (B, 4, 256) symbol counts), both on rgb's device, unsynchronised. The
-    framing is the encode pass's (restart_interval)."""
-    z = front_entries(rgb, config, geom)
-    hists = entropy_ops.symbol_histograms(z, geom, config.restart_interval)
-    return z, hists.reshape(-1, 4, 256)
+    framing is the encode pass's (restart_interval). One program (the
+    "batch_stats" key, graphs.run with `owner`), its outputs overwritten by
+    the key's next replay."""
+    return _stats(rgb, config, geom, rgb.device, owner)
 
 
 def build_chunk_luts(
@@ -337,12 +404,22 @@ def dispatch_optimized_encode(
     config: EncoderConfig,
     geom: FrameGeometry,
     capacity: int,
+    owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Enqueue the encode pass of an optimize chunk: its entries (on their
     device) with one (dc, ac) table pair per image, as dispatch_chunk's
-    result."""
-    luts = tuple(torch.from_numpy(t).to(z.device) for t in (dc_luts, ac_luts))
-    return _encode_entries(z, config, geom, capacity, luts)
+    result. One program (the "batch_custom" key, graphs.run with `owner`):
+    a replay copies the entries and the (B, 2, 256) host tables into its
+    buffers."""
+
+    def program(z, dc_luts, ac_luts):
+        return _encode_entries(z, config, geom, capacity, (dc_luts, ac_luts))
+
+    images = z.shape[0] // geom.num_scan_entries
+    key = program_keys(geom, config, capacity, images)["batch_custom"]
+    inputs = {"z": z, "dc_luts": torch.from_numpy(dc_luts),
+              "ac_luts": torch.from_numpy(ac_luts)}
+    return graphs.run(key, program, inputs, z.device, owner=owner)
 
 
 def assemble_chunk_optimized(

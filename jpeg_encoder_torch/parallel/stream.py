@@ -25,6 +25,23 @@ three legs run at once, on queues of depth QUEUE_DEPTH a share:
 Host memory and device memory hold a few chunks whatever the number of
 files; chunk sizes come from parallel/batch.chunk_size_images.
 
+The device work runs as parallel/batch's programs (graphs.run: on a card a
+key's second call captures a CUDA graph, later calls replay it). A replay
+overwrites its key's outputs, and here other threads still read them when
+the key replays again: the writer fetches chunk k while the main thread
+replays chunk k+1, k+2 ..., and with optimized Huffman the main thread
+reads chunk k's entries and counts while the loader replays the
+statistics of chunk k+1, k+2 .... So the leg that replayed clones each
+output that another thread reads, on its own stream right after the
+replay, and marks the clone (record_stream) for the stream that reads it:
+one device copy a chunk. The programs' owner (graphs.run) is the calling
+thread with the leg and the share, not the legs' own threads, which are
+new in every call: a caller runs one encode_paths at a time, so a second
+call over the same geometry replays what the first captured. The writer's
+single-image retries (rare) go through encode_array keyed by the writer's
+thread. The legs run in copies of the caller's context, so
+graphs.disabled() around the call makes every leg eager.
+
 The pinned buffers are one ring per dimension group, QUEUE_DEPTH + 1
 deep, allocated when the group starts and shared by the shares; a slot is
 decoded into again only after the copy out of it has completed (the event
@@ -48,6 +65,7 @@ JAX package's does.
 from __future__ import annotations
 
 import concurrent.futures
+import contextvars
 import dataclasses
 import os
 import queue
@@ -181,6 +199,7 @@ def encode_paths(
               for d, k in zip(targets, devices_lib.ordinals(targets))]
     work = _work(paths, config)
     optimize = config.optimize_huffman
+    caller = threading.get_ident()
 
     # Deep enough that every share can hold a chunk in each leg.
     load_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH * len(shares))
@@ -244,8 +263,15 @@ def encode_paths(
                         stats_leg.wait(ready)
                         if cuda:
                             rgb.record_stream(stats_leg.stream)
-                        item.z, item.hists = batch_lib.optimized_stats_uploaded(
-                            rgb, config, geom)
+                        z, hists = batch_lib.optimized_stats_uploaded(
+                            rgb, config, geom, (caller, "stats", share))
+                        # The main thread reads them after this leg's next
+                        # replays of the key.
+                        item.z, item.hists = z.clone(), hists.clone()
+                        if cuda:
+                            compute = shares[share][2].stream
+                            item.z.record_stream(compute)
+                            item.hists.record_stream(compute)
                         item.ready = stats_leg.ready()
                 load_q.put(item)
         except BaseException as e:  # propagate to the main thread
@@ -284,8 +310,11 @@ def encode_paths(
             while write_q.get() is not _DONE:
                 pass
 
-    lt = threading.Thread(target=loader, name="jpeg-torch-loader")
-    wt = threading.Thread(target=writer, name="jpeg-torch-writer")
+    # Each leg in a copy of the caller's context (graphs.disabled()).
+    lt = threading.Thread(target=contextvars.copy_context().run,
+                          args=(loader,), name="jpeg-torch-loader")
+    wt = threading.Thread(target=contextvars.copy_context().run,
+                          args=(writer,), name="jpeg-torch-writer")
     lt.start()
     wt.start()
     loader_done = False
@@ -299,22 +328,28 @@ def encode_paths(
                 continue  # drain after a writer error
             geom = config.geometry(*item.dims)
             capacity = batch_lib.chunk_capacity_bytes(config, geom)
-            compute = shares[item.share][2]
+            compute, write = shares[item.share][2:]
+            owner = (caller, "compute", item.share)
             with compute.on():
                 compute.wait(item.ready)
                 specs_list = None
                 if optimize:
                     specs_list, dc_luts, ac_luts = batch_lib.build_chunk_luts(
                         item.hists.cpu().numpy())
-                    if cuda:
-                        item.z.record_stream(compute.stream)
                     payloads, bits = batch_lib.dispatch_optimized_encode(
-                        item.z, dc_luts, ac_luts, config, geom, capacity)
+                        item.z, dc_luts, ac_luts, config, geom, capacity,
+                        owner)
                 else:
                     if cuda:
                         item.rgb.record_stream(compute.stream)
                     payloads, bits = batch_lib.dispatch_uploaded(
-                        item.rgb, config, geom, capacity)
+                        item.rgb, config, geom, capacity, owner)
+                # The writer reads them after this thread's next replays
+                # of the key.
+                payloads, bits = payloads.clone(), bits.clone()
+                if cuda:
+                    payloads.record_stream(write.stream)
+                    bits.record_stream(write.stream)
                 done = compute.ready()
             write_q.put((item.share, item.paths, item.rgb, geom, capacity,
                          payloads, bits, specs_list, done))

@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_encoder_torch import constants, pipeline, scan, tables
+from jpeg_encoder_torch import constants, graphs, pipeline, scan, tables
 from jpeg_encoder_torch.kernels import _build
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
@@ -660,11 +660,15 @@ def test_entropy_kernel_per_row_init_dc(cuda, ratio, row_mcus):
     EncoderConfig(optimize_huffman=True, restart_interval=5),
 ], ids=["420", "444", "restart7", "optimize", "optimize-restart5"])
 @pytest.mark.parametrize("bands", [2, 3, 8])
-def test_encode_tiled_on_card_matches_cpu(cuda, config, bands):
+def test_encode_tiled_on_card_matches_cpu(cuda, config, bands, monkeypatch):
     """The band path on the card: one launch of the DCT kernel and one of
-    K4 a call, the same file as the CPU path and as encode_array."""
+    K4 a call (its programs' first, eager call: an empty program cache,
+    since the cases share band programs, and a key's second call adds its
+    capture's warm-up), the same file as the CPU path and as
+    encode_array."""
     from jpeg_encoder_torch.parallel import tiled
 
+    monkeypatch.setattr(graphs, "CACHE", graphs.Cache())
     rgb = corpus.landscape(333, 517)
     before = (dct_kernel.REALDCT.launches, entropy_kernel.ENTROPY.launches)
     got = tiled.encode_tiled(rgb, config, bands, device=cuda)

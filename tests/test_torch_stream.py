@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from jpeg_encoder_torch import pipeline
+from jpeg_encoder_torch import graphs, pipeline
 from jpeg_encoder_torch.config import EncoderConfig
 from jpeg_encoder_torch.io import bmp
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
@@ -254,14 +254,17 @@ def test_stream_on_card_matches_encode_batch(cuda, tmp_path, monkeypatch,
                                              config):
     """On the card, over two dimension groups and several chunks each, the
     engine's files == encode_batch's on the card, and K4 codes every
-    chunk."""
+    chunk: chunks of 3, 3 and 1 images and one of 3, their programs' keys
+    new (an empty program cache), so the second chunk of 3 is its key's
+    capture, whose warm-up launches K4 once more."""
     monkeypatch.setattr(batch, "CHUNK_INPUT_BUDGET", 3 * 333 * 517 * 3)
+    monkeypatch.setattr(graphs, "CACHE", graphs.Cache())
     shapes = [(333, 517)] * 7 + [(64, 48)] * 3
     paths, images = _write_bmps(tmp_path, shapes, seed=3)
     got = {}
     before = entropy_kernel.ENTROPY.launches
     stats = stream.encode_paths(paths, config, got.__setitem__)
-    assert entropy_kernel.ENTROPY.launches - before == 3 + 1
+    assert entropy_kernel.ENTROPY.launches - before == 3 + 1 + 1
     assert stats.encoded == len(paths)
     for group in (paths[:7], paths[7:]):
         want = batch.encode_batch(np.stack([images[p] for p in group]),

@@ -68,6 +68,13 @@ folder-1080p-420-stream at 32 BMP files and one timed pass), between a
 reset and a read of the launch counts, and fails unless each exits 0
 with every file of every run equal to the NumPy oracle's and every
 metric BENCHMARK.json names for it. The
+staged-read path runs encode_file's staged read (the BMP file's stored
+rows read into the thread's pinned staging buffer, uploaded as they are
+and reordered at the head of the program) over the benchmark's 8 corpus
+contents at 1920x1080 and at 1366x768 (rows padded), every file against
+the eager RGB path's, the buffers required pinned; it prints the upload's
+GB/s, the reorder's device ms and a request's ms against the decoded
+path's. The
 bench path runs every measurement module (jpeg_encoder_torch/bench) in this
 process at reduced sizes, between a reset and a read of the launch counts
 (a call captured into a CUDA graph counts once): the throughput line, the
@@ -826,6 +833,92 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
             check(False, f"checkerboard with validate on {device} did not raise")
     print("e2e bin-dct checkerboard with validate: ValueError on the card and "
           "on CPU, as the reference", flush=True)
+    return counts
+
+
+# The staged read's geometries: 1920x1080 (rows of 5760 bytes) and
+# 1366x768, whose 4098-byte rows the file pads to 4100.
+STAGED_GEOMETRIES = ((1080, 1920), (768, 1366))
+
+
+def quartiles(values: list[float]) -> str:
+    q1, q2, q3 = statistics.quantiles(values, n=4)
+    return f"{q2:.4f} [{q1:.4f}, {q3:.4f}]"
+
+
+def staged_read_phase(cuda, card, tmp) -> dict[str, int]:
+    """encode_file's staged read on the card (bmp.read(path, out=) into
+    the thread's pipeline.STAGING buffer, the rows uploaded as stored and
+    reordered at the head of the program): the benchmark's 8 corpus
+    contents (benchmark/contents.py, seed 0) at each of STAGED_GEOMETRIES,
+    twice (each key's eager call, its capture, replays); every file equal
+    to the eager RGB path's (encode_array of the decoded array under
+    graphs.disabled()); the thread's buffers pinned. Then prints the
+    upload's GB/s from the pinned buffer and the reorder's device ms (CUDA
+    events), and a request's ms against the decoded path's (bmp.read,
+    encode_array of the array, the write), in alternated rounds."""
+    from benchmark import contents
+    from jpeg_encoder_torch import graphs, pipeline
+    from jpeg_encoder_torch.io import bmp
+
+    want = {}
+    for height, width in STAGED_GEOMETRIES:
+        for k in range(8):
+            rgb = contents.content(0, k, height, width)
+            src = os.path.join(tmp, f"staged_{width}x{height}_{k}.bmp")
+            bmp.write(src, rgb)
+            with graphs.disabled():
+                want[src] = pipeline.encode_array(rgb, device=cuda).file_bytes
+
+    def drive():
+        for _ in range(2):
+            for src, file_bytes in want.items():
+                dst = src[:-4] + ".jpg"
+                pipeline.encode_file(src, dst, device=cuda)
+                with open(dst, "rb") as f:
+                    check(f.read() == file_bytes,
+                          f"staged read {src}: file != the eager RGB path's")
+
+    counts = counted("staged read", drive, ("realdct", "entropy"))
+    for height, width in STAGED_GEOMETRIES:
+        buffer = pipeline.STAGING.take(cuda, width, height).buffer
+        check(buffer.is_pinned(),
+              f"staged read {width}x{height}: the staging buffer is pageable")
+        rows = torch.empty(buffer.numel(), dtype=torch.uint8, device=cuda)
+        upload_ms = cuda_ms(lambda: rows.copy_(buffer, non_blocking=True))
+        stored = rows.view(height, bmp.row_stride(width))
+        reorder_ms = cuda_ms(lambda: bmp.rows_to_rgb(stored, width))
+        print(f"staged read {width}x{height}: {len(want) // 2} files x 2, "
+              f"every file == the eager RGB path's; pinned buffer of "
+              f"{buffer.numel()} B; upload {upload_ms:.4f} ms "
+              f"({buffer.numel() / upload_ms / 1e6:.2f} GB/s); reorder "
+              f"{reorder_ms:.4f} ms ({card})", flush=True)
+
+    def decoded(src, dst):
+        result = pipeline.encode_array(bmp.read(src), device=cuda)
+        with open(dst, "wb") as f:
+            f.write(result.file_bytes)
+
+    height, width = STAGED_GEOMETRIES[0]
+    paths = list(want)[:8]
+    ways = {"staged": lambda src, dst: pipeline.encode_file(src, dst,
+                                                           device=cuda),
+            "decoded": decoded}
+    ms = {name: [] for name in ways}
+    for name, way in ways.items():  # each key's eager call and capture
+        for src in paths[:2]:
+            way(src, src[:-4] + ".jpg")
+    for turn in range(6):
+        for name in (("staged", "decoded") if turn % 2 == 0
+                     else ("decoded", "staged")):
+            for src in paths:
+                t0 = time.perf_counter()
+                ways[name](src, src[:-4] + ".jpg")
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"staged read {width}x{height} request ms, median [quartiles] of "
+          f"{len(ms['staged'])}, alternated rounds of 8: staged "
+          f"{quartiles(ms['staged'])}, decoded {quartiles(ms['decoded'])} "
+          f"({card})", flush=True)
     return counts
 
 
@@ -2934,6 +3027,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
         path_counts = [e2e_phase(cuda, images_1080, images_4k, tmp)]
     phase_s["e2e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
+        path_counts.append(staged_read_phase(cuda, card, tmp))
+    phase_s["staged read"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     path_counts.append(graph_phase(cuda, images_1080, images_4k, card))
     phase_s["graphs"] = time.perf_counter() - t0

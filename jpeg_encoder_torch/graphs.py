@@ -30,7 +30,10 @@ names one), and keeps one cache a device. For each key:
 
 An input named in `pad` reaches fn with zero rows appended up to pad[name]
 leading rows: its buffer is zeroed once, and each call copies the input
-into its top rows.
+into its top rows. An input in pinned host memory is copied to the card
+without the host waiting (the eager call and every replay): its owner
+writes to it again only after the copy has completed (pipeline.Staging
+waits on an event recorded on the current stream after the call).
 
 A replay returns the same output tensors every time, and the next replay of
 its key overwrites them. The stream and owner in the key keep every other
@@ -194,7 +197,7 @@ class Program:
                     f"input {name!r}: {src.dtype} {tuple(src.shape)} where "
                     f"the program was captured with {dst.dtype} "
                     f"{tuple(dst.shape)} (a field missing from its key)")
-            dst.copy_(src)
+            dst.copy_(src, non_blocking=src.is_pinned())
         self.graph.replay()
         _build.add_launches(self.launches)
         self.replays += 1
@@ -352,7 +355,8 @@ def eager(fn, inputs: dict, device: torch.device, pad: dict | None = None):
     """fn(**inputs) on device without a graph."""
     if pad:
         return fn(**static_inputs(inputs, device, pad)[0])
-    return fn(**{name: t.to(device) for name, t in inputs.items()})
+    return fn(**{name: t.to(device, non_blocking=t.is_pinned())
+                 for name, t in inputs.items()})
 
 
 def run(key: tuple, fn, inputs: dict, device: torch.device,

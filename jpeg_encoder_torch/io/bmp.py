@@ -7,6 +7,13 @@ bottom-to-top with rows padded to 4-byte multiples. Unlike the reference
 buffer read + one vectorized numpy reshape — this is host code feeding the
 device, so it must not be the bottleneck.
 
+read(path, out=...) is the staged read of the single-file entry
+(pipeline.encode_file): it validates the header, reads the file's pixel
+rows as stored (bottom row first, BGR, each row padded to 4 bytes) straight
+into a caller's buffer with readinto, with no bytes object and no host
+decode, and returns them as Rows; rows_to_rgb does the strip, flip and
+swap on whatever device the rows were copied to.
+
 The writer exists for fixtures, benchmarks, and round-trip tests (the
 reference ships no sample images).
 """
@@ -14,10 +21,12 @@ reference ships no sample images).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import struct
 
 import numpy as np
+import torch
 
 from jpeg_encoder_torch import native
 
@@ -25,6 +34,7 @@ _DATA_OFFSET_POS = 10
 _WIDTH_POS = 18
 _HEIGHT_POS = 22
 _BPP_POS = 28
+_HEADER_BYTES = 54
 
 
 _NATIVE_ERRORS = {
@@ -63,25 +73,52 @@ def decode(buf: bytes | np.ndarray) -> np.ndarray:
     lib = native.load()
     if lib is not None:
         return _decode_native(lib, raw)
-    if raw.size < 54 or bytes(raw[:2]) != b"BM":
+    width, height, data_offset = _header(bytes(raw[:_HEADER_BYTES]), raw.size)
+    stride = row_stride(width)
+    rows = raw[data_offset:data_offset + stride * height].reshape(
+        height, stride)[:, : width * 3]
+    bgr = rows.reshape(height, width, 3)
+    rgb = bgr[::-1, :, ::-1]  # bottom-up storage, BGR channel order
+    return np.ascontiguousarray(rgb)
+
+
+def row_stride(width: int) -> int:
+    """The bytes of one stored pixel row: 3 a pixel, padded to 4."""
+    return (width * 3 + 3) // 4 * 4
+
+
+def _header(head: bytes, size: int) -> tuple[int, int, int]:
+    """(width, height, pixel-data offset) of a BMP file of `size` bytes
+    from its first 54 bytes, validated as decode validates the whole file,
+    with the same ValueError texts (the native probe's where the native
+    runtime loads)."""
+    lib = native.load()
+    if lib is not None:
+        raw = np.zeros(_HEADER_BYTES, np.uint8)
+        raw[: len(head)] = np.frombuffer(head[:_HEADER_BYTES], np.uint8)
+        w, h = ctypes.c_int32(), ctypes.c_int32()
+        off, bpp = ctypes.c_int64(), ctypes.c_int32()
+        rc = lib.jt_bmp_probe(
+            _u8ptr(raw), size,
+            ctypes.byref(w), ctypes.byref(h), ctypes.byref(off),
+            ctypes.byref(bpp),
+        )
+        if rc != 0:
+            raise ValueError(_NATIVE_ERRORS.get(rc, f"BMP decode error {rc}"))
+        return w.value, h.value, off.value
+    if size < _HEADER_BYTES or head[:2] != b"BM":
         raise ValueError("not a BMP file (missing 'BM' magic)")
-    data_offset = int.from_bytes(raw[_DATA_OFFSET_POS:_DATA_OFFSET_POS + 4], "little")
-    width = int.from_bytes(raw[_WIDTH_POS:_WIDTH_POS + 4], "little", signed=True)
-    height = int.from_bytes(raw[_HEIGHT_POS:_HEIGHT_POS + 4], "little", signed=True)
-    bpp = int.from_bytes(raw[_BPP_POS:_BPP_POS + 2], "little")
+    data_offset = int.from_bytes(head[_DATA_OFFSET_POS:_DATA_OFFSET_POS + 4], "little")
+    width = int.from_bytes(head[_WIDTH_POS:_WIDTH_POS + 4], "little", signed=True)
+    height = int.from_bytes(head[_HEIGHT_POS:_HEIGHT_POS + 4], "little", signed=True)
+    bpp = int.from_bytes(head[_BPP_POS:_BPP_POS + 2], "little")
     if bpp != 24:
         raise ValueError(f"only 24-bit BMP is supported, got {bpp}-bit")
     if width <= 0 or height <= 0:
         raise ValueError(f"unsupported BMP dimensions {width}x{height}")
-
-    row_stride = (width * 3 + 3) // 4 * 4
-    need = data_offset + row_stride * height
-    if raw.size < need:
+    if size < data_offset + row_stride(width) * height:
         raise ValueError("BMP file truncated")
-    rows = raw[data_offset:need].reshape(height, row_stride)[:, : width * 3]
-    bgr = rows.reshape(height, width, 3)
-    rgb = bgr[::-1, :, ::-1]  # bottom-up storage, BGR channel order
-    return np.ascontiguousarray(rgb)
+    return width, height, data_offset
 
 
 def probe_dimensions(head: bytes) -> tuple[int, int]:
@@ -100,9 +137,61 @@ def probe_dimensions(head: bytes) -> tuple[int, int]:
     return width, height
 
 
-def read(path: str | os.PathLike) -> np.ndarray:
-    with open(path, "rb") as f:
-        return decode(f.read())
+@dataclasses.dataclass(frozen=True)
+class Rows:
+    """A BMP file's pixel rows as the file stores them: `rows` is
+    (height, row_stride(width)) uint8, bottom row first, BGR, each row
+    padded to 4 bytes (rows_to_rgb makes the image of them)."""
+
+    rows: torch.Tensor
+    width: int
+    height: int
+
+
+def rows_to_rgb(rows: torch.Tensor, width: int) -> torch.Tensor:
+    """Stored rows (Rows.rows) -> (height, width, 3) uint8 RGB, top row
+    first, as decode gives it: the padding strip, the row flip and the
+    B/R swap, as torch ops on the rows' device (one contiguous copy)."""
+    bgr = rows[:, : 3 * width].unflatten(1, (width, 3))
+    return bgr.flip((0, 2))
+
+
+def read(path: str | os.PathLike, out=None):
+    """BMP file -> (H, W, 3) uint8 RGB (decode), or with `out` its stored
+    pixel rows (Rows) read straight into `out`.
+
+    out is a 1-D uint8 CPU tensor of at least height * row_stride(width)
+    bytes, or a function (width, height) -> such a tensor, called once the
+    header is read (a buffer for the file's geometry). The header is
+    validated as decode validates it, with the same ValueError texts; the
+    pixel rows are read into out's first bytes with readinto, and Rows
+    holds a view of them.
+    """
+    if out is None:
+        with open(path, "rb") as f:
+            return decode(f.read())
+    with open(path, "rb", buffering=0) as f:
+        head = f.read(_HEADER_BYTES)
+        width, height, data_offset = _header(head, os.fstat(f.fileno()).st_size)
+        buffer = out(width, height) if callable(out) else out
+        nbytes = height * row_stride(width)
+        if (buffer.dtype != torch.uint8 or buffer.device.type != "cpu"
+                or buffer.dim() != 1 or not buffer.is_contiguous()
+                or buffer.numel() < nbytes):
+            raise ValueError(
+                f"{path}: out must be a contiguous 1-D uint8 CPU tensor of at "
+                f"least {nbytes} bytes, got {buffer.dtype} "
+                f"{tuple(buffer.shape)} on {buffer.device}")
+        rows = buffer[:nbytes]
+        view = memoryview(rows.numpy())
+        f.seek(data_offset)
+        got = 0
+        while got < nbytes:
+            n = f.readinto(view[got:])
+            if not n:
+                raise ValueError("BMP file truncated")
+            got += n
+    return Rows(rows.view(height, row_stride(width)), width, height)
 
 
 def read_batch(
@@ -213,8 +302,8 @@ def encode(rgb: np.ndarray) -> bytes:
         if rc != 0:
             raise ValueError(f"BMP encode error {rc}")
         return out.tobytes()
-    row_stride = (width * 3 + 3) // 4 * 4
-    data_size = row_stride * height
+    stride = row_stride(width)
+    data_size = stride * height
     file_size = 54 + data_size
 
     header = struct.pack(
@@ -223,7 +312,7 @@ def encode(rgb: np.ndarray) -> bytes:
         b"BM", file_size, 0, 0, 54,
         40, width, height, 1, 24, 0, data_size, 2835, 2835, 0, 0,
     )
-    rows = np.zeros((height, row_stride), dtype=np.uint8)
+    rows = np.zeros((height, stride), dtype=np.uint8)
     rows[:, : width * 3] = rgb[::-1, :, ::-1].reshape(height, width * 3)
     return header + rows.tobytes()
 

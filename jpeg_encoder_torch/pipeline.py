@@ -8,8 +8,15 @@ Colour, padding, subsampling and the scan marshal are plain PyTorch
 ops; the DCT and the scan encoder are kernels (kernels/dct.py,
 kernels/entropy.py, kernels/pack.py through scan.py), which run their
 CUDA code on CUDA tensors and their plain PyTorch versions on CPU tensors.
-The host decodes the BMP, builds optimal tables, stuffs 0xFF bytes and
-writes the JFIF container (the port's tables.py and io/).
+The host builds optimal tables, stuffs 0xFF bytes and writes the JFIF
+container (the port's tables.py and io/).
+
+encode_file does not decode the BMP on the host: it reads the file's pixel
+rows as stored (io/bmp.read(path, out=...)) into a host buffer of its
+thread's (Staging: pinned on a card, one a device and geometry, a few a
+thread), uploads them as they are, and the program's first op strips,
+flips and swaps them (bmp.rows_to_rgb). encode_array takes either form,
+an RGB array or bmp.Rows; the form is part of the program's key.
 
 encode_array runs its device programs through graphs.run: on a card, one
 CUDA graph a configuration (program_keys), replayed from the second call
@@ -24,8 +31,10 @@ parallel/batch.py codes in one launch per kernel.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import torch
@@ -345,6 +354,61 @@ class EncodeResult:
     geom: FrameGeometry
 
 
+class Staging:
+    """A host buffer for one device and geometry's stored BMP rows, pinned
+    on a card (a card without pinned memory raises: nothing goes up from
+    pageable memory). wait() returns once the copy out of it that
+    release() marked has completed, as parallel/stream.py's pinned ring
+    waits before it hands a slot out again."""
+
+    def __init__(self, device: torch.device, nbytes: int):
+        self.device = device
+        pin = device.type == "cuda"
+        self.buffer = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+        if pin and not self.buffer.is_pinned():
+            raise RuntimeError(f"could not pin a {nbytes}-byte staging buffer")
+        self.copied = torch.cuda.Event() if pin else None
+
+    def release(self) -> None:
+        """Mark the end of the work enqueued so far on the device's current
+        stream (the copy out of the buffer among it)."""
+        if self.copied is not None:
+            self.copied.record(torch.cuda.current_stream(self.device))
+
+    def wait(self) -> "Staging":
+        if self.copied is not None:
+            self.copied.synchronize()
+        return self
+
+
+class StagingBuffers:
+    """Each thread's Staging buffers, one a device and geometry, the
+    `slots` most recently used kept (pinned memory stays bounded, and no
+    two threads share a buffer)."""
+
+    def __init__(self, slots: int = 4):
+        self.slots = slots
+        self._local = threading.local()
+
+    def take(self, device: torch.device, width: int, height: int) -> Staging:
+        """This thread's buffer for device and a width x height file, once
+        the copy out of it has completed."""
+        held = getattr(self._local, "held", None)
+        if held is None:
+            held = self._local.held = collections.OrderedDict()
+        key = (device, width, height)
+        if key in held:
+            held.move_to_end(key)
+        else:
+            held[key] = Staging(device, height * bmp.row_stride(width))
+            if len(held) > self.slots:
+                held.popitem(last=False)
+        return held[key].wait()
+
+
+STAGING = StagingBuffers()
+
+
 def check_restart_geometry(geom: FrameGeometry) -> None:
     """Refuse restart markers on the quirk geometries.
 
@@ -445,20 +509,23 @@ def program_keys(
     capacity_bytes: int,
     with_coeffs: bool = False,
     packer: str = "fused",
+    source: str = "rgb",
 ) -> dict[str, tuple]:
     """The keys (graphs.run) of encode_array's device programs for config
-    at geom, the ladder's first rung capacity_bytes: {"scan": rgb -> the
+    at geom, the ladder's first rung capacity_bytes: {"scan": image -> the
     scan (with its entries, its ranges under validate, the coefficients
-    with with_coeffs)}, or with optimize_huffman {"stats": rgb -> symbol
+    with with_coeffs)}, or with optimize_huffman {"stats": image -> symbol
     counts and entries, "custom": entries and tables -> the scan}. Each
-    holds what the JAX package's compiled_* cache keys hold."""
+    holds what the JAX package's compiled_* cache keys hold; the programs
+    that take the image end with its form, source: "rgb" (an (H, W, 3)
+    array) or "bmp-rows" (a BMP file's stored rows, bmp.Rows)."""
     front = (geom, *dct_key(config), config.restart_interval)
     if config.optimize_huffman:
-        return {"stats": ("stats", *front),
+        return {"stats": ("stats", *front, source),
                 "custom": ("custom", *front, capacity_bytes, config.validate,
                            packer)}
     return {"scan": ("scan", *front, capacity_bytes, config.validate,
-                     with_coeffs, packer)}
+                     with_coeffs, packer, source)}
 
 
 def scan_program(
@@ -501,7 +568,7 @@ def check_config(config) -> None:
 
 
 def encode_array(
-    rgb: np.ndarray,
+    rgb: np.ndarray | bmp.Rows,
     config: EncoderConfig = EncoderConfig(),
     *,
     device: str | torch.device = "cuda",
@@ -511,6 +578,12 @@ def encode_array(
 ):
     """Encode an (H, W, 3) uint8 RGB array into JFIF bytes on `device`
     (the card by default; "cpu" runs the plain versions).
+
+    rgb may also be a BMP file's stored rows (bmp.Rows, from bmp.read(path,
+    out=...)): they are uploaded as they are (from pinned memory without
+    waiting, when they lie there: their owner keeps them until the copy
+    has completed) and reordered at the head of the program
+    (bmp.rows_to_rgb); the bytes are the same.
 
     Every EncoderConfig option runs: restart_interval frames the scan
     into independently coded intervals (DRI/RSTn); optimize_huffman
@@ -529,9 +602,15 @@ def encode_array(
     replay it (graphs.disabled() keeps it eager).
     """
     check_config(config)
-    if rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError("expected (H, W, 3) RGB input")
-    height, width = rgb.shape[:2]
+    if isinstance(rgb, bmp.Rows):
+        height, width = rgb.height, rgb.width
+        source, image = "bmp-rows", {"rows": rgb.rows}
+    else:
+        if rgb.ndim != 3 or rgb.shape[2] != 3:
+            raise ValueError("expected (H, W, 3) RGB input")
+        height, width = rgb.shape[:2]
+        source, image = "rgb", {"rgb": torch.from_numpy(
+            np.ascontiguousarray(rgb, dtype=np.uint8))}
     geom = config.geometry(width, height)
     restart = config.restart_interval
     if return_coeffs and config.optimize_huffman:
@@ -543,9 +622,16 @@ def encode_array(
     if restart is not None:
         check_restart_geometry(geom)
     device = resolve_device(device)
-    host_rgb = torch.from_numpy(np.ascontiguousarray(rgb, dtype=np.uint8))
     capacity = _initial_capacity_bytes or initial_capacity_bytes(geom, config)
-    keys = program_keys(geom, config, capacity, return_coeffs, packer)
+    keys = program_keys(geom, config, capacity, return_coeffs, packer,
+                        source)
+
+    def front_program(program):
+        """program(rgb) as it takes this call's image: the stored rows go
+        through bmp.rows_to_rgb first, on the device."""
+        if source == "rgb":
+            return program
+        return lambda rows: program(bmp.rows_to_rgb(rows, width))
     front = dict(fast_dct=config.fast_dct,
                  bin_dct_descale=config.bin_dct_descale)
     specs = host_luts = None
@@ -560,8 +646,8 @@ def encode_array(
             return custom_core(z, geom, capacity, (dc_lut, ac_lut), restart,
                                config.validate, packer)
 
-        hist, z = graphs.run(keys["stats"], stats_program, {"rgb": host_rgb},
-                             device)
+        hist, z = graphs.run(keys["stats"], front_program(stats_program),
+                             image, device)
         specs, host_luts = optimal_specs_and_luts(hist.cpu().numpy(), "cpu")
         first = graphs.run(
             keys["custom"], custom_program,
@@ -569,8 +655,9 @@ def encode_array(
     else:
         first = graphs.run(
             keys["scan"],
-            scan_program(geom, config, capacity, return_coeffs, packer),
-            {"rgb": host_rgb}, device)
+            front_program(scan_program(geom, config, capacity, return_coeffs,
+                                       packer)),
+            image, device)
         z = first["z"]
 
     # The program codes the first rung; a rung above it (rare) codes the
@@ -615,10 +702,26 @@ def encode_file(
     *,
     device: str | torch.device = "cuda",
 ) -> EncodeResult:
-    """BMP file -> JFIF file, encoded on `device` (the card by default)."""
+    """BMP file -> JFIF file, encoded on `device` (the card by default).
+
+    The file's pixel rows go from the page cache into the calling thread's
+    staging buffer for the device and geometry (STAGING; pinned on a card)
+    and from there to the card as they are stored; the program reorders
+    them (encode_array of bmp.Rows)."""
     check_config(config)
-    rgb = bmp.read(bmp_path)
-    result = encode_array(rgb, config, device=device)
+    device = resolve_device(device)
+    taken = []
+
+    def buffer(width: int, height: int) -> torch.Tensor:
+        taken.append(STAGING.take(device, width, height))
+        return taken[-1].buffer
+
+    try:
+        rows = bmp.read(bmp_path, out=buffer)
+        result = encode_array(rows, config, device=device)
+    finally:
+        for staging in taken:
+            staging.release()
     with open(output_path, "wb") as f:
         f.write(result.file_bytes)
     return result

@@ -31,11 +31,14 @@ K3), each batch case three times with different content, its chunk
 programs (parallel/batch.program_keys) run eagerly, captured and replayed,
 every file against the eager card path (graphs.disabled()), a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
 2^31 bits, against the CPU path) and the stream engine
-(jpeg_encoder_torch.parallel.stream.encode_paths: 64 1080p and 15 4K BMP
-files to JFIF files, every file against encode_batch's, none of the run's
-own programs evicted, 8 also under restart and optimize, and, with a
-writer that sleeps through the first two chunks, under default and
-optimize against the eager card path; under the profiler every
+(jpeg_encoder_torch.parallel.stream.encode_paths: 64 1080p, 15 4K and 45
+1366x768 BMP files, whose rows are padded, to JFIF files, every file
+against encode_batch's, every slot of the loader's ring pinned, one
+emitting thread, none of the run's own programs evicted, 8 also under
+restart and optimize, and, with an emitter that sleeps through the first
+two chunks, under default and optimize against the eager card path; the
+Mpixel/s of a pass beside the loader's, assembler's and emitter's busy
+seconds; under the profiler every
 host-to-device copy must be pinned and one at least must overlap a
 kernel), the band path
 (jpeg_encoder_torch.parallel.tiled.encode_tiled: 1080p at 2, 3, 4 and 8
@@ -79,7 +82,8 @@ bench path runs every measurement module (jpeg_encoder_torch/bench) in this
 process at reduced sizes, between a reset and a read of the launch counts
 (a call captured into a CUDA graph counts once): the throughput line, the
 ratio x algorithm matrix and two cells, the 4K band program, datasets of
-16 and 8 (optimized) 1080p files, the batch curve and four shares, every
+16 and 8 (optimized) 1080p files, the host I/O of the stream's legs
+over 16 1080p files, the batch curve and four shares, every
 kernel by CUDA-graph replay, and the parity sweeps (all 2^24 colour
 triples, 24 corpus and 24 geometry files, each against the oracle); it
 fails unless each exits 0 with its JSON line and every sweep is exact.
@@ -127,6 +131,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1709,22 +1714,28 @@ def trace_overlap(trace_path: str) -> tuple[list[str], int, int, float]:
 def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
     """The stream engine, driven (parallel.stream.encode_paths on the card,
     BMP files in, JFIF files written by emit): 64 1080p frames (three
-    chunks of <= 21 at the 128 MiB budget) and 15 4K frames (three chunks
-    of 5) at 4:2:0, corpus content, in one call (two dimension groups).
-    Every file == encode_batch's on the card; that run starts from an
-    empty program cache and must evict none of the programs it captures
-    (each chunk's device work is parallel/batch's program, replayed from
-    a key's third call). 8 of the 1080p files also under restart 120,
-    optimize, and optimize with restart 120, each == the single-image card
-    file. Then the 64 1080p files with a writer that sleeps 50 ms a file
-    for the first two chunks, so that the main thread replays the key for
-    later chunks (and, with optimize, the loader the statistics) while the
-    writer holds one: under default and optimize, twice each, every file
-    == the eager card path's (graphs.disabled()). Then ms/image and
-    files/s of the stream, replayed and eager, against a synchronous loop
-    (read_batch -> encode_batch -> write, chunk by chunk) over the same
-    files, the loader's decode and the writer's busy seconds, the pinned
-    and pageable H2D rates, and, under the
+    chunks of <= 21 at the 128 MiB budget), 15 4K frames (three chunks
+    of 5) and 45 1366x768 frames (rows of 4,098 bytes padded to 4,100;
+    chunks of 42 and 3) at 4:2:0, corpus content, in one call (three
+    dimension groups). Every file == encode_batch's on the card; every
+    slot of the loader's pinned ring (one a group, each (chunk, H *
+    row_stride(W)) bytes) is pinned; every emit ran on one thread, not
+    the caller's; that run starts from an empty program cache and must
+    evict none of the programs it captures (each chunk's device work is
+    parallel/batch's "bmp-rows" program, replayed from a key's third
+    call). 8 of the 1080p files also under restart 120, optimize, and
+    optimize with restart 120, each == the single-image card file. Then
+    the 64 1080p files with an emitter that sleeps 50 ms a file for the
+    first two chunks, so that the main thread replays the key for later
+    chunks (and, with optimize, the loader the statistics) while the
+    assembler holds one: under default and optimize, twice each, every
+    file == the eager card path's (graphs.disabled()). Then ms/image,
+    files/s and the last pass's Mpixel/s of the stream, replayed and
+    eager, against a synchronous loop (read_batch -> encode_batch ->
+    write, chunk by chunk) over the same files, the loader's read and the
+    assembler's and emitter's busy seconds, the host read of a chunk
+    (read_batch, read_into and the stream's bmp.read into a pinned slot,
+    an image a thread), the pinned and pageable H2D rates, and, under the
     profiler, a check that every host-to-device copy of a 1080p stream run
     is a pinned copy and that at least one overlaps a kernel (of another
     chunk: a chunk's own kernels wait on its copies). Returns the stream
@@ -1737,37 +1748,75 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
     from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch.io import bmp
     from jpeg_encoder_torch.parallel import batch, stream
+    from jpeg_encoder_torch.utils import corpus
 
     default = EncoderConfig()
     out_dir = os.path.join(tmp, "out")
     os.makedirs(out_dir)
     sets = {}
+    images_768 = [corpus.CORPUS[name](768, 1366)
+                  for name in ("landscape", "portrait", "foliage")]
     for label, images in (
             ("1920x1080", variants(list(images_1080.values()), 64)),
-            ("3840x2160", variants(list(images_4k.values()), 15))):
+            ("3840x2160", variants(list(images_4k.values()), 15)),
+            ("1366x768", variants(images_768, 45))):
         paths = []
         for i, rgb in enumerate(images):
             paths.append(os.path.join(tmp, f"{label}_{i:02d}.bmp"))
             bmp.write(paths[-1], rgb)
         sets[label] = (images, paths)
 
-    def writing(written: dict):
+    def writing(written: dict, emitters: set | None = None):
         def emit(path, data):
             dst = os.path.join(out_dir, os.path.basename(path)[:-4] + ".jpg")
             with open(dst, "wb") as f:
                 f.write(data)
             written[path] = dst
+            if emitters is not None:
+                emitters.add(threading.get_ident())
         return emit
 
-    written, runs = {}, []
-    every = sets["1920x1080"][1] + sets["3840x2160"][1]
+    rings = []
+
+    class Ring(stream._PinnedRing):
+        """The loader's ring, kept for the pinned check."""
+
+        def __init__(self, *args):
+            super().__init__(*args)
+            rings.append(self)
+
+    written, runs, emitters = {}, [], set()
+    every = [p for _, paths in sets.values() for p in paths]
     # An empty cache, so that an eviction in this run is one of the run's
     # own programs.
     graphs.CACHE.clear()
     evictions = graphs.CACHE.evictions
-    counts = counted("stream", lambda: runs.append(stream.encode_paths(
-        every, default, writing(written), device=cuda)), ("realdct", "entropy"))
+    ring = stream._PinnedRing
+    stream._PinnedRing = Ring
+    try:
+        counts = counted("stream", lambda: runs.append(stream.encode_paths(
+            every, default, writing(written, emitters), device=cuda)),
+            ("realdct", "entropy"))
+    finally:
+        stream._PinnedRing = ring
     check(runs[0].encoded == len(every), f"stream encoded {runs[0].encoded}")
+    check(len(rings) == len(sets) and all(
+        slot.is_pinned() for r in rings for slot in r.slots),
+        f"stream: {len(rings)} rings for {len(sets)} groups, or a slot "
+        "not pinned")
+    for r, (label, (images, _)) in zip(rings, sets.items()):
+        height, width = images.shape[1:3]
+        shape = (batch.chunk_size_images(default.geometry(width, height)),
+                 height * bmp.row_stride(width))
+        check(all(tuple(slot.shape) == shape for slot in r.slots),
+              f"stream {label}: ring slots {r.slots[0].shape}, not {shape}")
+    check(len(emitters) == 1 and threading.get_ident() not in emitters,
+          f"stream: emit ran on {len(emitters)} threads (the caller's "
+          f"among them: {threading.get_ident() in emitters})")
+    print(f"stream {len(every)} files in {len(sets)} groups: every ring slot "
+          f"pinned ({sum(len(r.slots) for r in rings)} slots of (chunk, H * "
+          f"row_stride(W)) bytes), every emit on one thread, not the "
+          f"caller's ({card})", flush=True)
     held = graphs.CACHE.programs(cuda)
     check(graphs.CACHE.evictions == evictions,
           f"stream: the default run evicted "
@@ -1805,10 +1854,10 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
         print(f"stream 8 x 1920x1080 4:2:0 {name}: every file == encode_array "
               "on the card", flush=True)
 
-    # A slow writer: the main thread replays the key for the next chunks
-    # (and, with optimize, the loader the statistics) while the writer
-    # still holds a chunk, so each leg must have cloned what another
-    # thread reads.
+    # A slow emitter: the main thread replays the key for the next chunks
+    # (and, with optimize, the loader the statistics) while the assembler
+    # and the emitter still hold chunks, so each leg must have cloned what
+    # another thread reads.
     paths = sets["1920x1080"][1]
     slow = 2 * batch.chunk_size_images(default.geometry(1920, 1080))
     for name, config in (("default", default), ("optimize", optimize)):
@@ -1824,9 +1873,9 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
                 got[path] = data
 
             stream.encode_paths(paths, config, emit, device=cuda)
-            check(got == want, f"stream {name} with a slow writer (run "
+            check(got == want, f"stream {name} with a slow emitter (run "
                   f"{run}): != the eager card path")
-        print(f"stream {len(paths)} x 1920x1080 4:2:0 {name}, the writer "
+        print(f"stream {len(paths)} x 1920x1080 4:2:0 {name}, the emitter "
               f"sleeping 50 ms a file for the first {slow} files, two runs: "
               "every file == the eager card path", flush=True)
 
@@ -1864,20 +1913,30 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
         pinned, pageable = h2d_rates(cuda, (chunk, geom.height, geom.width, 3))
         part = paths[:chunk]
         host = np.empty((len(part), geom.height, geom.width, 3), np.uint8)
+        slot = torch.empty((len(part), geom.height * bmp.row_stride(
+            geom.width)), dtype=torch.uint8, pin_memory=True)
         read = host_ms(lambda: bmp.read_batch(part), reps=3) / len(part)
-        with concurrent.futures.ThreadPoolExecutor(
-                len(os.sched_getaffinity(0))) as pool:
+        threads = len(os.sched_getaffinity(0))
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
             pooled = host_ms(lambda: list(pool.map(
                 bmp.read_into, part, host)), reps=3) / len(part)
+            staged = host_ms(lambda: list(pool.map(
+                lambda p, out: bmp.read(p, out=out), part, slot)),
+                reps=3) / len(part)
         print(f"time host BMP input {len(part)} x {label}: read_batch "
               f"(serial reads, threaded decode; the loop's) {read:.3f} "
-              f"ms/image, read_into an image a thread of "
-              f"{len(os.sched_getaffinity(0))} (the stream's) {pooled:.3f} "
+              f"ms/image, an image a thread of {threads}: read_into (read "
+              f"and host decode) {pooled:.3f} ms/image, bmp.read of the "
+              f"stored rows into a pinned slot (the stream's) {staged:.3f} "
               f"ms/image ({card})", flush=True)
         print(f"time stream {n} x {label} 4:2:0 BMP files -> JFIF files: "
               f"encode_paths {stream_ms:.3f} ms/image ({1e3 / stream_ms:.1f} "
-              f"files/s; last run decode {last.decode_seconds:.3f} s, write "
-              f"{last.write_seconds:.3f} s of {last.seconds:.3f} s), eager "
+              f"files/s; last pass "
+              f"{n * geom.width * geom.height / last.seconds / 1e6:.1f} "
+              f"Mpixel/s: decode_s {last.decode_seconds:.4f} s, "
+              f"assemble_seconds {last.assemble_seconds:.4f} s, "
+              f"emit_seconds {last.emit_seconds:.4f} s, write "
+              f"{last.write_seconds:.4f} s of {last.seconds:.4f} s), eager "
               f"(graphs.disabled()) {eager_ms:.3f} ms/image, "
               f"synchronous loop read_batch -> encode_batch -> write "
               f"{loop_ms:.3f} ms/image ({1e3 / loop_ms:.1f} files/s); H2D of "
@@ -2628,8 +2687,8 @@ def benchmark_phase(card) -> None:
 def bench_runs(tmp: str, launches: dict) -> list[tuple]:
     """(label, module, argv, JSON keys its last line must have) of every
     bench module at reduced sizes: windows of 0.1 s, a dataset of 16 (and
-    8 optimized) 1080p files, the parity sweep in all three modes at full
-    size. Scaling runs the batch curve and four shares of the card (its
+    8 optimized) 1080p files, the host I/O of 16 1080p files, the parity
+    sweep in all three modes at full size. Scaling runs the batch curve and four shares of the card (its
     weak-scaling loop; on one card its default is that loop's first row)."""
     short = ["--min-seconds", "0.1"]
     dataset = ["--images", "16", "--width", "1920", "--height", "1080",
@@ -2652,6 +2711,8 @@ def bench_runs(tmp: str, launches: dict) -> list[tuple]:
         ("scaling shares", "scaling", short + ["--shares", "4"], ("rows",)),
         ("kernels", "kernels", short + ["--launches", json.dumps(launches)],
          ("kernels", "stages", "matmul_ms")),
+        ("host io", "host_io", ["--images", "16", "--reps", "3"],
+         ("probe_serial", "read_native_pool", "emit_alone")),
         ("parity color", "parity", ["--color"], ("triples", "mismatched")),
         ("parity corpus", "parity", ["--corpus"], ("cases", "identical")),
         ("parity geometry", "parity", [], ("cases", "identical")),

@@ -134,6 +134,8 @@ def run(args, device: torch.device, card: str) -> int:
         "encode_seconds": result.seconds,
         "decode_seconds": result.decode_seconds,
         "write_seconds": result.write_seconds,
+        "assemble_seconds": result.assemble_seconds,
+        "emit_seconds": result.emit_seconds,
         "output_mb": result.output_bytes / 1e6,
         "host_rss_peak_mb": rss_peak_kb / 1024,
         "host_rss_before_mb": rss0 / 1024,

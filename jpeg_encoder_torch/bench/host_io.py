@@ -1,0 +1,169 @@
+"""The stream engine's host I/O, leg by leg: what sets a folder's pace.
+
+The instrument of the open question of which host resource the loader's
+reads and the emitter's writes share (ROADMAP §2 item 10, PERF.md §7):
+its emit times beside reading threads show the contention; its probe and
+read times are the evidence for reading the headers in path order and
+the rows natively.
+
+    python -m jpeg_encoder_torch.bench.host_io [--images 64] [--width 1920]
+        [--height 1080] [--threads N] [--reps 5] [--dir DIR]
+        [--device cuda|cpu]
+
+Writes N BMP files of corpus content (bench/dataset.write_bmps) and their
+JFIF files (one parallel/stream.encode_paths pass on `device`), then
+times, by the host clock, median of --reps:
+
+- probe: the headers of every file read in path order on one thread
+  (parallel/stream._probe, what encode_paths does before its legs) and
+  the same reads spread over a pool of --threads threads;
+- read: every file's stored rows read into one buffer a file (pinned on
+  a card, as the loader's ring is), by io/bmp.read (one native call
+  where the native runtime loads) and by its path without the native
+  runtime, on one thread and on a pool of --threads;
+- emit: the N JFIF files written one after another from one thread, as
+  the stream's emitter writes them: alone, then while 1 and --threads
+  threads read BMP files without pause (the loader's native read).
+
+The JSON line gives ms a file for each. The threads default to the
+decoder pool's size (one a core).
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import os
+import shutil
+import statistics
+import sys
+import tempfile
+import threading
+import time
+
+import torch
+
+from jpeg_encoder_torch.bench import timing
+from jpeg_encoder_torch.bench.dataset import write_bmps
+from jpeg_encoder_torch.config import EncoderConfig
+from jpeg_encoder_torch.io import bmp
+from jpeg_encoder_torch.parallel import stream
+from jpeg_encoder_torch.parallel.devices import resolve_device
+
+
+def median_ms(fn, reps: int, count: int) -> float:
+    """fn() once to warm, then the median of `reps` calls, in ms a file
+    of `count` files."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return statistics.median(times) * 1e3 / count
+
+
+def python_read(path, buffer: torch.Tensor):
+    """io/bmp.read's path without the native runtime (open, header,
+    readinto) into buffer."""
+    return bmp._read_python(path, buffer)
+
+
+def native_read(path, buffer: torch.Tensor):
+    return bmp.read(path, out=buffer)
+
+
+class Readers:
+    """`count` threads reading the files into their own buffers without
+    pause, while the block runs."""
+
+    def __init__(self, count: int, paths: list[str], buffers):
+        self.stop = threading.Event()
+        self.threads = [threading.Thread(target=self.run,
+                                         args=(j, paths, buffers[j]))
+                        for j in range(count)]
+
+    def run(self, j: int, paths: list[str], buffer: torch.Tensor) -> None:
+        k = j
+        while not self.stop.is_set():
+            native_read(paths[k % len(paths)], buffer)
+            k += 1
+
+    def __enter__(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        for t in self.threads:
+            t.join()
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = timing.parser(__doc__.splitlines()[0])
+    ap.add_argument("--images", type=int, default=64)
+    ap.add_argument("--width", type=int, default=1920)
+    ap.add_argument("--height", type=int, default=1080)
+    ap.add_argument("--threads", type=int,
+                    default=len(os.sched_getaffinity(0)))
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--dir", default="")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    card = timing.card_line(device)
+    root = args.dir or tempfile.mkdtemp(prefix="jpeg_torch_io_")
+    try:
+        return run(args, device, card, root)
+    finally:
+        if not args.dir:
+            shutil.rmtree(root)
+
+
+def run(args, device: torch.device, card: str, root: str) -> int:
+    src, out = os.path.join(root, "bmp"), os.path.join(root, "out")
+    os.makedirs(src, exist_ok=True)
+    os.makedirs(out, exist_ok=True)
+    paths = write_bmps(src, args.images, args.height, args.width)
+    files = {}
+    stream.encode_paths(paths, EncoderConfig(), files.__setitem__,
+                        device=device)
+    n, reps, threads = len(paths), args.reps, args.threads
+    nbytes = args.height * bmp.row_stride(args.width)
+    buffers = torch.empty((max(n, threads), nbytes), dtype=torch.uint8,
+                          pin_memory=device.type == "cuda")
+
+    def reads(read, pool=None):
+        if pool is None:
+            return lambda: [read(p, b) for p, b in zip(paths, buffers)]
+        return lambda: list(pool.map(read, paths, buffers))
+
+    def emits():
+        for i, path in enumerate(paths):
+            with open(os.path.join(out, f"{i:05d}.jpg"), "wb") as f:
+                f.write(files[path])
+
+    line = {"metric": "host_io_ms_per_file", "images": n,
+            "geometry": f"{args.width}x{args.height}", "threads": threads,
+            "jfif_kb_per_file": sum(map(len, files.values())) / n / 1e3,
+            "pinned": bool(buffers.is_pinned())}
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        line["probe_serial"] = median_ms(
+            lambda: [stream._probe(p) for p in paths], reps, n)
+        line["probe_pool"] = median_ms(
+            lambda: list(pool.map(stream._probe, paths)), reps, n)
+        for name, read in (("native", native_read), ("python", python_read)):
+            line[f"read_{name}_1"] = median_ms(reads(read), reps, n)
+            line[f"read_{name}_pool"] = median_ms(reads(read, pool), reps, n)
+    line["emit_alone"] = median_ms(emits, reps, n)
+    for count in (1, threads):
+        with Readers(count, paths, buffers):
+            line[f"emit_under_{count}_readers"] = median_ms(emits, reps, n)
+    timing.log(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else
+                        f"{k}={v}" for k, v in line.items()))
+    line.update(clock="host", card=card)
+    timing.emit(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

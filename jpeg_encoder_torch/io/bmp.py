@@ -43,6 +43,8 @@ _NATIVE_ERRORS = {
     -3: "unsupported BMP dimensions",
     -4: "BMP file truncated",
 }
+_NATIVE_CAPACITY = -5  # jt_bmp_read_rows: the buffer is too small
+_NATIVE_IO = -6        # jt_bmp_read_rows: a system call failed
 
 
 def _u8ptr(arr: np.ndarray):
@@ -141,7 +143,8 @@ def probe_dimensions(head: bytes) -> tuple[int, int]:
 class Rows:
     """A BMP file's pixel rows as the file stores them: `rows` is
     (height, row_stride(width)) uint8, bottom row first, BGR, each row
-    padded to 4 bytes (rows_to_rgb makes the image of them)."""
+    padded to 4 bytes (rows_to_rgb makes the image of them); or, for a
+    chunk of B files of one geometry, (B, height, row_stride(width))."""
 
     rows: torch.Tensor
     width: int
@@ -149,11 +152,12 @@ class Rows:
 
 
 def rows_to_rgb(rows: torch.Tensor, width: int) -> torch.Tensor:
-    """Stored rows (Rows.rows) -> (height, width, 3) uint8 RGB, top row
-    first, as decode gives it: the padding strip, the row flip and the
-    B/R swap, as torch ops on the rows' device (one contiguous copy)."""
-    bgr = rows[:, : 3 * width].unflatten(1, (width, 3))
-    return bgr.flip((0, 2))
+    """Stored rows (Rows.rows, (..., height, stride)) -> (..., height,
+    width, 3) uint8 RGB, top row first, as decode gives it: the padding
+    strip, the row flip and the B/R swap, as torch ops on the rows' device
+    (one contiguous copy); leading dimensions are a batch."""
+    bgr = rows[..., : 3 * width].unflatten(-1, (width, 3))
+    return bgr.flip((-3, -1))
 
 
 def read(path: str | os.PathLike, out=None):
@@ -164,24 +168,32 @@ def read(path: str | os.PathLike, out=None):
     bytes, or a function (width, height) -> such a tensor, called once the
     header is read (a buffer for the file's geometry). The header is
     validated as decode validates it, with the same ValueError texts; the
-    pixel rows are read into out's first bytes with readinto, and Rows
-    holds a view of them.
+    pixel rows are read into out's first bytes, and Rows holds a view of
+    them. With the native runtime the read is native calls (open, header,
+    one pread, close) that hold the interpreter lock for none of their
+    I/O: the stream engine's decoder threads read this way beside its
+    emitting thread. Without it, Python reads the header and readintos
+    the rows.
     """
     if out is None:
         with open(path, "rb") as f:
             return decode(f.read())
+    lib = native.load()
+    if lib is not None:
+        return _read_native(lib, path, out)
+    return _read_python(path, out)
+
+
+def _read_python(path, out) -> Rows:
+    """read(path, out=out) without the native runtime: the header read
+    and checked in Python, the rows readinto out."""
     with open(path, "rb", buffering=0) as f:
         head = f.read(_HEADER_BYTES)
         width, height, data_offset = _header(head, os.fstat(f.fileno()).st_size)
         buffer = out(width, height) if callable(out) else out
         nbytes = height * row_stride(width)
-        if (buffer.dtype != torch.uint8 or buffer.device.type != "cpu"
-                or buffer.dim() != 1 or not buffer.is_contiguous()
-                or buffer.numel() < nbytes):
-            raise ValueError(
-                f"{path}: out must be a contiguous 1-D uint8 CPU tensor of at "
-                f"least {nbytes} bytes, got {buffer.dtype} "
-                f"{tuple(buffer.shape)} on {buffer.device}")
+        if not _flat_bytes(buffer) or buffer.numel() < nbytes:
+            raise _not_a_buffer(path, buffer, nbytes)
         rows = buffer[:nbytes]
         view = memoryview(rows.numpy())
         f.seek(data_offset)
@@ -192,6 +204,58 @@ def read(path: str | os.PathLike, out=None):
                 raise ValueError("BMP file truncated")
             got += n
     return Rows(rows.view(height, row_stride(width)), width, height)
+
+
+def _flat_bytes(out) -> bool:
+    """out is a contiguous 1-D uint8 CPU tensor (read's buffer)."""
+    return (isinstance(out, torch.Tensor) and out.dtype == torch.uint8
+            and out.device.type == "cpu" and out.dim() == 1
+            and out.is_contiguous())
+
+
+def _not_a_buffer(path, buffer, nbytes: int) -> ValueError:
+    return ValueError(
+        f"{path}: out must be a contiguous 1-D uint8 CPU tensor of at "
+        f"least {nbytes} bytes, got {buffer.dtype} "
+        f"{tuple(buffer.shape)} on {buffer.device}")
+
+
+def _read_native(lib, path, out) -> Rows:
+    """read(path, out=out) through the native runtime, with read's
+    errors. A buffer function is called with the geometry that a first
+    call, given no buffer, reports; then the rows are read into its
+    buffer."""
+    if callable(out):
+        out = out(*_read_rows_native(lib, path, None))
+    width, height = _read_rows_native(lib, path, out)
+    stride = row_stride(width)
+    return Rows(out[: height * stride].view(height, stride), width, height)
+
+
+def _read_rows_native(lib, path, buffer) -> tuple[int, int]:
+    """One jt_bmp_read_rows call (open, the header checked as jt_bmp_probe
+    checks a file of its size, one pread, close) into buffer, or with
+    buffer None into nothing, to learn the geometry: (width, height).
+    Raises the header's ValueError texts, a short or unfit buffer's, and
+    an OSError of the failed call's errno."""
+    if buffer is not None and not _flat_bytes(buffer):
+        width, height = _read_rows_native(lib, path, None)
+        raise _not_a_buffer(path, buffer, height * row_stride(width))
+    w, h, errno = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    rc = lib.jt_bmp_read_rows(
+        os.fsencode(path),
+        None if buffer is None else _u8ptr(buffer.numpy()),
+        0 if buffer is None else buffer.numel(),
+        ctypes.byref(w), ctypes.byref(h), ctypes.byref(errno))
+    if rc == _NATIVE_CAPACITY and buffer is None:
+        return w.value, h.value
+    if rc == _NATIVE_CAPACITY:
+        raise _not_a_buffer(path, buffer, h.value * row_stride(w.value))
+    if rc == _NATIVE_IO:
+        raise OSError(errno.value, os.strerror(errno.value), os.fspath(path))
+    if rc != 0:
+        raise ValueError(_NATIVE_ERRORS.get(rc, f"BMP decode error {rc}"))
+    return w.value, h.value
 
 
 def read_batch(

@@ -12,7 +12,12 @@
 //
 // Error codes: 0 = ok, negative = validation failure (see JT_ERR_*).
 
+#include <fcntl.h>
+#include <sys/stat.h>
+#include <unistd.h>
+
 #include <atomic>
+#include <cerrno>
 #include <cstdint>
 #include <cstring>
 #include <thread>
@@ -23,6 +28,7 @@
 #define JT_ERR_DIMS -3       // non-positive or absurd dimensions
 #define JT_ERR_TRUNCATED -4  // pixel data shorter than header promises
 #define JT_ERR_CAPACITY -5   // output buffer too small
+#define JT_ERR_IO -6         // a system call failed (its errno is returned)
 
 namespace {
 
@@ -125,6 +131,71 @@ int jt_bmp_encode_rgb(const uint8_t* rgb, int32_t width, int32_t height,
     std::memset(dst + width * 3, 0, stride - width * 3);
   }
   return 0;
+}
+
+namespace {
+
+// pread until n bytes or the end of the file: the bytes read, or -1.
+int64_t pread_full(int fd, uint8_t* out, int64_t n, int64_t offset) {
+  int64_t got = 0;
+  while (got < n) {
+    const ssize_t r = pread(fd, out + got, static_cast<size_t>(n - got),
+                            static_cast<off_t>(offset + got));
+    if (r < 0) {
+      if (errno == EINTR) continue;
+      return -1;
+    }
+    if (r == 0) break;
+    got += r;
+  }
+  return got;
+}
+
+}  // namespace
+
+// A BMP file's pixel rows as stored (height * row_stride(width) bytes,
+// bottom row first, BGR, padded) read straight into out: open, the header
+// validated as jt_bmp_probe validates a whole file of the file's size,
+// one pread of the rows, close. width and height are set once the header
+// is valid, also when out's capacity is short (JT_ERR_CAPACITY, nothing
+// read). On JT_ERR_IO, *error is the failed call's errno. No interpreter
+// runs here, so a ctypes caller holds its lock for none of the I/O.
+int jt_bmp_read_rows(const char* path, uint8_t* out, int64_t capacity,
+                     int32_t* width, int32_t* height, int32_t* error) {
+  *error = 0;
+  const int fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (fd < 0) {
+    *error = errno;
+    return JT_ERR_IO;
+  }
+  struct stat st;
+  uint8_t head[kHeaderSize] = {0};
+  int rc = 0;
+  if (fstat(fd, &st) != 0 || pread_full(fd, head, kHeaderSize, 0) < 0) {
+    *error = errno;
+    rc = JT_ERR_IO;
+  }
+  int32_t bpp = 0;
+  int64_t offset = 0;
+  if (rc == 0)
+    rc = jt_bmp_probe(head, static_cast<int64_t>(st.st_size), width, height,
+                      &offset, &bpp);
+  if (rc == 0) {
+    const int64_t nbytes = row_stride(*width) * *height;
+    if (nbytes > capacity) {
+      rc = JT_ERR_CAPACITY;
+    } else {
+      const int64_t got = pread_full(fd, out, nbytes, offset);
+      if (got < 0) {
+        *error = errno;
+        rc = JT_ERR_IO;
+      } else if (got < nbytes) {
+        rc = JT_ERR_TRUNCATED;
+      }
+    }
+  }
+  close(fd);
+  return rc;
 }
 
 // Threaded batch ingest (the "data loader"): decode n same-sized BMP

@@ -21,12 +21,13 @@ contiguous shares, one an entry, as P(DATA_AXIS) splits the JAX batch:
 each share is uploaded and enqueued on its own card and stream before any
 share is fetched, and the files come back in input order. Each share is
 dispatch_chunk (device work on the current stream, enqueued, nothing
-synchronised; parallel/stream.py uploads on its own and calls
-dispatch_uploaded), fetch_chunk (one copy of the bit counts, then one copy
-of every row up to the longest payload) and assemble_chunk (JFIF files on
-the host; a member whose payload overflowed the chunk's shared capacity is
-re-encoded alone through pipeline.encode_array from the next capacity
-rung). Optimized Huffman runs the two passes over each share: statistics
+synchronised; parallel/stream.py uploads the files' stored rows on its own
+and calls dispatch_uploaded with them, as bmp.Rows: the program reorders
+them first, bmp.rows_to_rgb), fetch_chunk (one copy of the bit counts,
+then one copy of every row up to the longest payload) and assemble_chunk
+(JFIF files on the host; a member whose payload overflowed the chunk's
+shared capacity is re-encoded alone through pipeline.encode_array from
+the next capacity rung). Optimized Huffman runs the two passes over each share: statistics
 (one histogram), tables on the host, then the encode of the same scan
 entries with per-image tables.
 
@@ -58,7 +59,7 @@ import torch
 
 from jpeg_encoder_torch import graphs, pipeline
 from jpeg_encoder_torch.config import EncoderConfig, FrameGeometry
-from jpeg_encoder_torch.io import jfif
+from jpeg_encoder_torch.io import bmp, jfif
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.parallel import devices as devices_lib
@@ -131,21 +132,24 @@ def chunk_capacity_bytes(config: EncoderConfig, geom: FrameGeometry) -> int:
 
 
 def program_keys(geom: FrameGeometry, config: EncoderConfig, capacity: int,
-                 images: int) -> dict[str, tuple]:
+                 images: int, source: str = "rgb") -> dict[str, tuple]:
     """The keys (graphs.run) of the device programs of a chunk of `images`
     images of geom (the exact count) at the chunk's shared capacity:
-    "batch" (rgb -> payloads and bits: dispatch_uploaded) and, for
-    optimized Huffman, "batch_stats" (rgb -> entries and symbol counts:
-    optimized_stats_uploaded) then "batch_custom" (entries and each image's
-    tables, program inputs -> payloads and bits:
+    "batch" (the chunk -> payloads and bits: dispatch_uploaded) and, for
+    optimized Huffman, "batch_stats" (the chunk -> entries and symbol
+    counts: optimized_stats_uploaded) then "batch_custom" (entries and each
+    image's tables, program inputs -> payloads and bits:
     dispatch_optimized_encode). Each holds what changes its program, as the
     JAX package's compiled_batch_* keys do (the mesh aside: a share is the
     caller's stream and owner); the batch neither validates nor takes a
-    packer."""
+    packer. The two that take the chunk end with its form, source: "rgb"
+    ((B, H, W, 3) images) or "bmp-rows" (the files' stored rows, bmp.Rows),
+    as pipeline.program_keys does; "batch_custom" takes the entries, the
+    same in either form."""
     front = (geom, *pipeline.dct_key(config), config.restart_interval,
              images)
-    return {"batch": ("batch", *front, capacity),
-            "batch_stats": ("batch_stats", *front),
+    return {"batch": ("batch", *front, capacity, source),
+            "batch_stats": ("batch_stats", *front, source),
             "batch_custom": ("batch_custom", geom, config.restart_interval,
                              capacity, images)}
 
@@ -181,20 +185,41 @@ def _host(images) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
 
 
-def _batch(rgb, config, geom, capacity, device, owner):
-    """The "batch" program of rgb (on the host or on device) on device."""
+def _form(images):
+    """A chunk as a program takes it, (B, H, W, 3) RGB or bmp.Rows of (B,
+    H, stride) stored rows: (its source form, the program's inputs, a
+    function that makes a program of RGB take them). The rows are reordered
+    at the program's head (bmp.rows_to_rgb), on its device."""
+    if isinstance(images, bmp.Rows):
+        width = images.width
+        return ("bmp-rows", {"rows": images.rows},
+                lambda program: lambda rows: program(
+                    bmp.rows_to_rgb(rows, width)))
+    return "rgb", {"rgb": images}, lambda program: program
+
+
+def _tensor(images) -> torch.Tensor:
+    """A chunk's tensor in either form: its images or its stored rows."""
+    return images.rows if isinstance(images, bmp.Rows) else images
+
+
+def _batch(images, config, geom, capacity, device, owner):
+    """The "batch" program of a chunk (on the host or on device, either
+    form) on device."""
 
     def program(rgb):
         return _encode_entries(front_entries(rgb, config, geom), config,
                                geom, capacity)
 
-    key = program_keys(geom, config, capacity, rgb.shape[0])["batch"]
-    return graphs.run(key, program, {"rgb": rgb}, device, owner=owner)
+    source, inputs, taking = _form(images)
+    count = _tensor(images).shape[0]
+    key = program_keys(geom, config, capacity, count, source)["batch"]
+    return graphs.run(key, taking(program), inputs, device, owner=owner)
 
 
-def _stats(rgb, config, geom, device, owner):
-    """The "batch_stats" program of rgb (on the host or on device) on
-    device."""
+def _stats(images, config, geom, device, owner):
+    """The "batch_stats" program of a chunk (on the host or on device,
+    either form) on device."""
 
     def program(rgb):
         z = front_entries(rgb, config, geom)
@@ -202,8 +227,10 @@ def _stats(rgb, config, geom, device, owner):
                                               config.restart_interval)
         return z, hists.reshape(-1, 4, 256)
 
-    key = program_keys(geom, config, 0, rgb.shape[0])["batch_stats"]
-    return graphs.run(key, program, {"rgb": rgb}, device, owner=owner)
+    source, inputs, taking = _form(images)
+    count = _tensor(images).shape[0]
+    key = program_keys(geom, config, 0, count, source)["batch_stats"]
+    return graphs.run(key, taking(program), inputs, device, owner=owner)
 
 
 def dispatch_chunk(
@@ -223,21 +250,24 @@ def dispatch_chunk(
 
 
 def dispatch_uploaded(
-    rgb: torch.Tensor,
+    images: torch.Tensor | bmp.Rows,
     config: EncoderConfig,
     geom: FrameGeometry,
     capacity: int,
     owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Enqueue the encode of one uploaded (B, H, W, 3) uint8 chunk on rgb's
-    device (on the current stream): (payloads, bit lengths) as device
-    tensors, (B, capacity) and (B,), or (B, n_int, capacity) and (B,
-    n_int) with restart markers. Nothing is synchronised, so the caller can
-    overlap other work and fetch later (fetch_chunk). One program (the
-    "batch" key, graphs.run with `owner`): a replay first copies rgb into
-    the program's buffer, a device-to-device copy, and its outputs are
+    """Enqueue the encode of one uploaded chunk, (B, H, W, 3) uint8 images
+    or the files' stored rows (bmp.Rows of (B, H, stride) uint8, as the
+    stream engine uploads them), on its device (on the current stream):
+    (payloads, bit lengths) as device tensors, (B, capacity) and (B,), or
+    (B, n_int, capacity) and (B, n_int) with restart markers. Nothing is
+    synchronised, so the caller can overlap other work and fetch later
+    (fetch_chunk). One program (the "batch" key of the chunk's form,
+    graphs.run with `owner`): a replay first copies the chunk into the
+    program's buffer, a device-to-device copy, and its outputs are
     overwritten by the key's next replay."""
-    return _batch(rgb, config, geom, capacity, rgb.device, owner)
+    return _batch(images, config, geom, capacity, _tensor(images).device,
+                  owner)
 
 
 def fetch_chunk(
@@ -264,7 +294,8 @@ def assemble_chunk(
     """Host-side file assembly for one chunk's fetched results, with each
     member's optimal tables (DHT) if specs_list is given. images are the
     chunk's (B, H, W, 3) uint8 images, on the host or as the uploaded
-    tensor: they are read only to retry a member.
+    tensor, or its files' stored rows (bmp.Rows): they are read only to
+    retry a member.
 
     A member whose payload (or any interval's) overflowed `capacity` is
     re-encoded alone through pipeline.encode_array, from the next rung of
@@ -274,11 +305,12 @@ def assemble_chunk(
     """
     restart = config.restart_interval
     files = []
-    for i in range(images.shape[0]):
+    for i in range(len(bit_lengths)):
         bits = bit_lengths[i]
         specs = None if specs_list is None else specs_list[i]
         if int(np.max(bits)) > 8 * capacity:
-            files.append(_retry(images[i], config, geom, capacity, device))
+            files.append(_retry(_member(images, i), config, geom, capacity,
+                                device))
         elif restart is not None:
             files.append(jfif.assemble_restart(
                 geom, list(payloads[i]), [int(b) for b in bits], restart,
@@ -292,16 +324,30 @@ def assemble_chunk(
     return files
 
 
-def _retry(rgb, config, geom, capacity, device) -> bytes:
-    if isinstance(rgb, torch.Tensor):
-        rgb = rgb.cpu().numpy()
+def _member(images, i: int):
+    """Member i of a chunk, in the chunk's form."""
+    if isinstance(images, bmp.Rows):
+        return bmp.Rows(images.rows[i], images.width, images.height)
+    return images[i]
+
+
+def _retry(image, config, geom, capacity, device) -> bytes:
+    """One member (an (H, W, 3) image or its file's bmp.Rows, on the host
+    or on a device) through encode_array from the rung above capacity; the
+    same program, so the same bytes, in either form."""
+    if isinstance(image, bmp.Rows):
+        image = bmp.Rows(image.rows.cpu(), image.width, image.height)
+    else:
+        if isinstance(image, torch.Tensor):
+            image = image.cpu().numpy()
+        image = np.asarray(image)
     restart = config.restart_interval
     if restart is None:
         rung = pipeline.next_capacity_bytes(geom, capacity)
     else:
         rung = pipeline.restart_next_capacity_bytes(geom, restart, capacity)
     return pipeline.encode_array(
-        np.asarray(rgb), config, device=device, _initial_capacity_bytes=rung
+        image, config, device=device, _initial_capacity_bytes=rung
     ).file_bytes
 
 
@@ -371,16 +417,17 @@ def dispatch_optimized_stats(
 
 
 def optimized_stats_uploaded(
-    rgb: torch.Tensor, config: EncoderConfig, geom: FrameGeometry,
-    owner=None,
+    images: torch.Tensor | bmp.Rows, config: EncoderConfig,
+    geom: FrameGeometry, owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Enqueue the statistics pass of one uploaded optimize chunk: (the
-    chunk's (B * E, 64) scan entries, which the encode pass reuses, and
-    (B, 4, 256) symbol counts), both on rgb's device, unsynchronised. The
-    framing is the encode pass's (restart_interval). One program (the
-    "batch_stats" key, graphs.run with `owner`), its outputs overwritten by
-    the key's next replay."""
-    return _stats(rgb, config, geom, rgb.device, owner)
+    """Enqueue the statistics pass of one uploaded optimize chunk (either
+    form, as dispatch_uploaded takes it): (the chunk's (B * E, 64) scan
+    entries, which the encode pass reuses, and (B, 4, 256) symbol counts),
+    both on its device, unsynchronised. The framing is the encode pass's
+    (restart_interval). One program (the "batch_stats" key of the chunk's
+    form, graphs.run with `owner`), its outputs overwritten by the key's
+    next replay."""
+    return _stats(images, config, geom, _tensor(images).device, owner)
 
 
 def build_chunk_luts(

@@ -109,7 +109,9 @@ class DatasetResult:
     pixels: int = 0            # pixels encoded this run (not skipped ones)
     seconds: float = 0.0       # file-to-file wall clock of the encode loop
     decode_seconds: float = 0.0  # loader-thread busy time (overlapped)
-    write_seconds: float = 0.0   # writer-thread busy time (overlapped)
+    write_seconds: float = 0.0   # assemble_seconds + emit_seconds
+    assemble_seconds: float = 0.0  # assembler-thread busy time (overlapped)
+    emit_seconds: float = 0.0      # emitter-thread busy time (overlapped)
 
 
 def _manifest_path(out_dir: str, process_index: int) -> str:
@@ -206,6 +208,8 @@ def encode_dataset(
         seconds=stats.seconds,
         decode_seconds=stats.decode_seconds,
         write_seconds=stats.write_seconds,
+        assemble_seconds=stats.assemble_seconds,
+        emit_seconds=stats.emit_seconds,
     )
 
 

@@ -1,65 +1,75 @@
-"""Overlapped file-to-file encoding: decode | dispatch | write.
+"""Overlapped file-to-file encoding: read | dispatch | assemble | emit.
 
 Port of jpeg_encoder_tpu/parallel/stream.py::encode_paths; `devices` (a
 count of cards or a list of devices, parallel/devices.py) takes the mesh's
 place. Chunk k goes whole to share k mod len(devices), and each share has
 its own copy, statistics, compute and write streams on its card. The
-three legs run at once, on queues of depth QUEUE_DEPTH a share:
+four legs run at once, on queues of depth QUEUE_DEPTH a share:
 
-  loader thread : chunk k+1's BMP files read and decoded into a pinned
-                  host buffer, an image a thread of a decoder pool (one
-                  thread a core; io/bmp.read_into, whose native decode
-                  releases the interpreter lock), each image copied to the
-                  card on a copy stream as soon as it is decoded, so the
-                  first images overlap chunk k's kernels; with optimized
-                  Huffman, then the chunk's statistics pass, on a stream
-                  of the loader's own
-  main thread   : chunk k's encode (parallel/batch.dispatch_uploaded, or
-                  dispatch_optimized_encode with the chunk's tables built
-                  on the host) on a compute stream that first waits on the
-                  upload's (or the statistics pass's) event
-  writer thread : fetch_chunk, JFIF assembly (single-image retries
-                  included) and emit() for chunk k-1, on a stream of its
-                  own that waits on chunk k-1's encode
+  loader thread    : chunk k+1's BMP files, each file's pixel rows as
+                     stored (io/bmp.read(path, out=...): one pread, no
+                     host decode) read straight into a slot of a pinned
+                     host ring, an image a thread of a decoder pool (one
+                     thread a core), each image copied to the card on a
+                     copy stream as soon as it is read, so the first
+                     images overlap chunk k's kernels; with optimized
+                     Huffman, then the chunk's statistics pass, on a stream
+                     of the loader's own
+  main thread      : chunk k's encode (parallel/batch.dispatch_uploaded of
+                     the chunk's rows, or dispatch_optimized_encode with
+                     the chunk's tables built on the host) on a compute
+                     stream that first waits on the upload's (or the
+                     statistics pass's) event; the program reorders the
+                     rows first (bmp.rows_to_rgb), on the card
+  assembler thread : fetch_chunk and JFIF assembly (single-image retries
+                     included) of chunk k-1, on a stream of its own that
+                     waits on chunk k-1's encode
+  emitter thread   : emit() for each file of chunk k-2, in order, while
+                     the assembler fetches and assembles the next chunk
 
-Host memory and device memory hold a few chunks whatever the number of
-files; chunk sizes come from parallel/batch.chunk_size_images.
+Before the legs start, every file's header is read in path order (one
+pread a file, _probe), so the groups and chunks are those of the paths'
+order. Host memory and device memory hold a few chunks whatever
+the number of files; chunk sizes come from parallel/batch.chunk_size_images
+(its budget counts H * W * 3 bytes an image, whatever the row padding).
 
 The device work runs as parallel/batch's programs (graphs.run: on a card a
-key's second call captures a CUDA graph, later calls replay it). A replay
-overwrites its key's outputs, and here other threads still read them when
-the key replays again: the writer fetches chunk k while the main thread
-replays chunk k+1, k+2 ..., and with optimized Huffman the main thread
-reads chunk k's entries and counts while the loader replays the
-statistics of chunk k+1, k+2 .... So the leg that replayed clones each
-output that another thread reads, on its own stream right after the
-replay, and marks the clone (record_stream) for the stream that reads it:
-one device copy a chunk. The programs' owner (graphs.run) is the calling
-thread with the leg and the share, not the legs' own threads, which are
-new in every call: a caller runs one encode_paths at a time, so a second
-call over the same geometry replays what the first captured. The writer's
-single-image retries (rare) go through encode_array keyed by the writer's
-thread. The legs run in copies of the caller's context, so
+key's second call captures a CUDA graph, later calls replay it), keyed by
+the chunk's form, "bmp-rows". A replay overwrites its key's outputs, and
+here other threads still read them when the key replays again: the
+assembler fetches chunk k while the main thread replays chunk k+1, k+2
+..., and with optimized Huffman the main thread reads chunk k's entries
+and counts while the loader replays the statistics of chunk k+1, k+2 ....
+So the leg that replayed clones each output that another thread reads, on
+its own stream right after the replay, and marks the clone (record_stream)
+for the stream that reads it: one device copy a chunk. The programs' owner
+(graphs.run) is the calling thread with the leg and the share, not the
+legs' own threads, which are new in every call: a caller runs one
+encode_paths at a time, so a second call over the same geometry replays
+what the first captured. The assembler's single-image retries (rare) go
+through encode_array, from the member's stored rows, keyed by the
+assembler's thread. The legs run in copies of the caller's context, so
 graphs.disabled() around the call makes every leg eager.
 
 The pinned buffers are one ring per dimension group, QUEUE_DEPTH + 1
-deep, allocated when the group starts and shared by the shares; a slot is
-decoded into again only after the copy out of it has completed (the event
-recorded on the copy stream of the card that copied it). A chunk's device copy
-is allocated on the copy stream and marked (record_stream) for each stream
-that reads it, so the caching allocator never hands its memory out while a
-kernel may still read it. All the streams come from torch's pool of
-non-blocking streams, never the legacy default stream, which would
-serialise with them. The kernel wrappers launch on the current stream of
-the thread that calls them, so each leg runs inside its share's device and
-stream context (devices.Share.on).
+deep, each slot (chunk, H * row_stride(W)) bytes, allocated when the group
+starts and shared by the shares; a slot is read into again only after the
+copy out of it has completed (the event recorded on the copy stream of
+the card that copied it). A chunk's device copy is allocated on the copy
+stream and marked (record_stream) for each stream that reads it, so the
+caching allocator never hands its memory out while a kernel may still
+read it. All the streams come from torch's pool of non-blocking streams,
+never the legacy default stream, which would serialise with them. The
+kernel wrappers launch on the current stream of the thread that calls
+them, so each leg runs inside its share's device and stream context
+(devices.Share.on).
 
-device="cpu" runs the same three legs and decoder pool with the kernels'
-plain versions and no staging: a chunk's decoded array is its "uploaded"
-tensor. There is no
-fallback: on the card a buffer that cannot be pinned raises, and a chunk
-never goes up from pageable memory. encode_batch stays synchronous, as the
-JAX package's does.
+device="cpu" runs the same four legs and decoder pool with the kernels'
+plain versions and no staging: the rows are read into an ordinary tensor,
+which is the chunk's "uploaded" tensor. There is no fallback: on the card
+a buffer that cannot be pinned raises, and a chunk never goes up from
+pageable memory. encode_batch stays synchronous, as the JAX package's
+does.
 """
 
 from __future__ import annotations
@@ -89,9 +99,11 @@ class StreamStats:
     encoded: int = 0
     output_bytes: int = 0
     pixels: int = 0
-    seconds: float = 0.0          # wall clock, files-on-disk to files-on-disk
-    decode_seconds: float = 0.0   # loader: BMP reads and decode (overlapped)
-    write_seconds: float = 0.0    # writer-thread busy time (overlapped)
+    seconds: float = 0.0           # wall clock, files-on-disk to files-on-disk
+    decode_seconds: float = 0.0    # loader: the files' reads (overlapped)
+    assemble_seconds: float = 0.0  # assembler-thread busy time (overlapped)
+    emit_seconds: float = 0.0      # emitter-thread busy time (overlapped)
+    write_seconds: float = 0.0     # assemble_seconds + emit_seconds
 
 
 @dataclasses.dataclass
@@ -101,16 +113,16 @@ class _Loaded:
     share: int                          # the index of its share
     dims: tuple[int, int]
     paths: list[str]
-    rgb: torch.Tensor                   # (B, H, W, 3) uint8 on the device
+    rows: bmp.Rows                      # (B, H, stride) uint8 on the device
     ready: torch.cuda.Event | None      # the upload (and statistics) done
     z: torch.Tensor | None = None       # optimize: the chunk's scan entries
     hists: torch.Tensor | None = None   # optimize: (B, 4, 256) counts
 
 
 class _PinnedRing:
-    """Pinned (chunk, H, W, 3) uint8 host buffers of one dimension group,
-    used in turn; a slot is handed out again only after the copy out of it
-    has completed."""
+    """Pinned (chunk, H * row_stride(W)) uint8 host buffers of one
+    dimension group, used in turn; a slot is handed out again only after
+    the copy out of it has completed."""
 
     def __init__(self, depth: int, shape: tuple[int, ...]):
         self.slots = []
@@ -140,15 +152,26 @@ def _chunks(seq: list, size: int):
         yield seq[start : start + size]
 
 
+def _probe(path: str) -> tuple[int, int]:
+    """A file's (width, height) from its first 64 bytes: one open, pread
+    and close, no Python file object."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        return bmp.probe_dimensions(os.pread(fd, 64, 0))
+    finally:
+        os.close(fd)
+
+
 def _work(paths: list[str], config: EncoderConfig):
     """[((width, height), chunk paths)]: paths grouped by dimensions in
     first-seen order (each group feeds one chunk shape), cut into chunks;
-    restart geometries are checked before any file is decoded."""
+    restart geometries are checked before any file is read. The headers
+    are read in path order on the calling thread: a 64-byte read is mostly
+    interpreter time, and a pool of threads, queued on the interpreter
+    lock, took two to four times as long (PERF.md)."""
     groups: dict[tuple[int, int], list[str]] = {}
     for path in paths:
-        with open(path, "rb") as f:
-            head = f.read(64)
-        groups.setdefault(bmp.probe_dimensions(head), []).append(path)
+        groups.setdefault(_probe(path), []).append(path)
     work = []
     for (width, height), group in groups.items():
         geom = config.geometry(width, height)
@@ -159,10 +182,20 @@ def _work(paths: list[str], config: EncoderConfig):
     return work
 
 
+def _read_rows(path: str, out: torch.Tensor, dims: tuple[int, int]) -> None:
+    """One file's stored rows into out (an image of a ring slot, or of an
+    ordinary tensor on the CPU: one native call, bmp.read); a file whose
+    header no longer gives its group's dimensions raises."""
+    rows = bmp.read(path, out=out)
+    if (rows.width, rows.height) != dims:
+        raise ValueError(f"{path}: {rows.width}x{rows.height}, its group is "
+                         f"{dims[0]}x{dims[1]}")
+
+
 def _legs(device: torch.device, k: int) -> tuple[devices_lib.Share, ...]:
-    """The k-th share of `device`'s four legs: copy and statistics
-    (loader), compute (main), write (writer), each on a stream of its own
-    on a card (devices.stream, kept from call to call)."""
+    """The k-th share of `device`'s four streams: copy and statistics
+    (loader), compute (main), write (assembler), each on a stream of its
+    own on a card (devices.stream, kept from call to call)."""
     return tuple(
         devices_lib.Share(device, devices_lib.stream(device, role, k)
                           if device.type == "cuda" else None)
@@ -183,12 +216,13 @@ def encode_paths(
     one): chunk k then goes to entry k mod len(devices), each entry with
     its own four streams.
 
-    `emit(path, file_bytes)` is called once per input, from the writer
+    `emit(path, file_bytes)` is called once per input, from the emitter
     thread, in path order within each dimension group (groups run in
     first-seen order): callers write the output file there. Calls are
-    serialised (one writer thread).
+    serialised (one emitter thread, one call at a time); chunk k's emits
+    overlap chunk k+1's fetch and assembly.
 
-    Raises the first exception from any leg after unwinding the pipeline
+    Raises the first exception from any leg after every thread is joined
     (no silent partial results; files already emitted stand).
     """
     t0 = time.perf_counter()
@@ -202,46 +236,50 @@ def encode_paths(
     caller = threading.get_ident()
 
     # Deep enough that every share can hold a chunk in each leg.
-    load_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH * len(shares))
-    write_q: queue.Queue = queue.Queue(maxsize=QUEUE_DEPTH * len(shares))
+    depth = QUEUE_DEPTH * len(shares)
+    load_q: queue.Queue = queue.Queue(maxsize=depth)
+    write_q: queue.Queue = queue.Queue(maxsize=depth)
+    emit_q: queue.Queue = queue.Queue(maxsize=depth)
     stats = StreamStats()
     errors: list[BaseException] = []
-    stop = threading.Event()
+    stop = threading.Event()          # a leg failed, or the main thread ended
+    emit_failed = threading.Event()   # nothing more is assembled
 
     def load(dims, chunk_paths, ring, decoders, copy):
-        """Read and decode a chunk's files, an image a thread of the
-        decoder pool, into a pinned slot (on the card) or a new array (on
+        """Read a chunk's files' stored rows, an image a thread of the
+        decoder pool, into a pinned slot (on the card) or a new tensor (on
         the CPU); on the card each image is copied up on the share's copy
-        stream as soon as it is decoded. Returns (the chunk on the device,
-        the copies' event or None)."""
+        stream as soon as it is read. Returns (the chunk's rows on the
+        device, the copies' event or None)."""
         n = len(chunk_paths)
         if cuda:
             slot, host = ring.take(n)
             with copy.on():
-                rgb = torch.empty(host.shape, dtype=torch.uint8,
-                                  device=copy.device)
+                rows = torch.empty(host.shape, dtype=torch.uint8,
+                                   device=copy.device)
         else:
-            host = rgb = torch.empty((n, dims[1], dims[0], 3),
-                                     dtype=torch.uint8)
+            host = rows = torch.empty(
+                (n, dims[1] * bmp.row_stride(dims[0])), dtype=torch.uint8)
         t = time.perf_counter()
-        decoded = [decoders.submit(bmp.read_into, path, host[j].numpy())
-                   for j, path in enumerate(chunk_paths)]
-        for j, done in enumerate(decoded):
+        read = [decoders.submit(_read_rows, path, host[j], dims)
+                for j, path in enumerate(chunk_paths)]
+        for j, done in enumerate(read):
             done.result()
             if cuda:
                 with copy.on():
-                    rgb[j].copy_(host[j], non_blocking=True)
+                    rows[j].copy_(host[j], non_blocking=True)
         stats.decode_seconds += time.perf_counter() - t
         copied = copy.ready()
         if cuda:
-            # The slot is decoded into again once this card's copy is done.
+            # The slot is read into again once this card's copy is done.
             ring.release(slot, copied)
-        return rgb, copied
+        return bmp.Rows(rows.view(n, dims[1], -1), *dims), copied
 
     def loader():
         ring, ring_dims = None, None
         decoders = concurrent.futures.ThreadPoolExecutor(
-            len(os.sched_getaffinity(0)))
+            len(os.sched_getaffinity(0)),
+            thread_name_prefix="jpeg-torch-decoder")
         try:
             for k, (dims, chunk_paths) in enumerate(work):
                 if stop.is_set():
@@ -250,11 +288,11 @@ def encode_paths(
                 copy, stats_leg = shares[share][:2]
                 geom = config.geometry(*dims)
                 if cuda and dims != ring_dims:
-                    shape = (batch_lib.chunk_size_images(geom), dims[1],
-                             dims[0], 3)
+                    shape = (batch_lib.chunk_size_images(geom),
+                             dims[1] * bmp.row_stride(dims[0]))
                     ring, ring_dims = _PinnedRing(QUEUE_DEPTH + 1, shape), dims
-                rgb, ready = load(dims, chunk_paths, ring, decoders, copy)
-                item = _Loaded(share, dims, chunk_paths, rgb, ready)
+                rows, ready = load(dims, chunk_paths, ring, decoders, copy)
+                item = _Loaded(share, dims, chunk_paths, rows, ready)
                 if optimize:
                     # Enqueued here, so chunk k+1's statistics run on the
                     # card while the main thread builds chunk k's tables
@@ -262,9 +300,9 @@ def encode_paths(
                     with stats_leg.on():
                         stats_leg.wait(ready)
                         if cuda:
-                            rgb.record_stream(stats_leg.stream)
+                            rows.rows.record_stream(stats_leg.stream)
                         z, hists = batch_lib.optimized_stats_uploaded(
-                            rgb, config, geom, (caller, "stats", share))
+                            rows, config, geom, (caller, "stats", share))
                         # The main thread reads them after this leg's next
                         # replays of the key.
                         item.z, item.hists = z.clone(), hists.clone()
@@ -280,13 +318,12 @@ def encode_paths(
             decoders.shutdown(wait=True, cancel_futures=True)
             load_q.put(_DONE)
 
-    def writer():
+    def assembler():
         try:
-            while True:
-                item = write_q.get()
-                if item is _DONE:
-                    return
-                (share, chunk_paths, rgb, geom, capacity, payloads, bits,
+            while (item := write_q.get()) is not _DONE:
+                if emit_failed.is_set():
+                    continue  # drain: nothing more is emitted
+                (share, chunk_paths, rows, geom, capacity, payloads, bits,
                  specs_list, done) = item
                 write = shares[share][3]
                 t = time.perf_counter()
@@ -295,28 +332,45 @@ def encode_paths(
                     payloads_np, bits_np = batch_lib.fetch_chunk(payloads,
                                                                  bits)
                     files = batch_lib.assemble_chunk(
-                        rgb, config, geom, capacity, payloads_np, bits_np,
+                        rows, config, geom, capacity, payloads_np, bits_np,
                         write.device, specs_list)
+                stats.assemble_seconds += time.perf_counter() - t
+                emit_q.put((chunk_paths, files, geom.width * geom.height))
+        except BaseException as e:
+            errors.append(e)
+            stop.set()
+            emit_q.put(_DONE)  # what was assembled before is still emitted
+            # Drain so the main thread's put() never blocks.
+            while write_q.get() is not _DONE:
+                pass
+        else:
+            emit_q.put(_DONE)
+
+    def emitter():
+        try:
+            while (item := emit_q.get()) is not _DONE:
+                chunk_paths, files, pixels = item
+                t = time.perf_counter()
                 for path, data in zip(chunk_paths, files):
                     emit(path, data)
                     stats.encoded += 1
                     stats.output_bytes += len(data)
-                    stats.pixels += geom.width * geom.height
-                stats.write_seconds += time.perf_counter() - t
+                    stats.pixels += pixels
+                stats.emit_seconds += time.perf_counter() - t
         except BaseException as e:
             errors.append(e)
+            emit_failed.set()
             stop.set()
-            # Drain so the main thread's put() never blocks.
-            while write_q.get() is not _DONE:
+            # Drain so the assembler's put() never blocks.
+            while emit_q.get() is not _DONE:
                 pass
 
     # Each leg in a copy of the caller's context (graphs.disabled()).
-    lt = threading.Thread(target=contextvars.copy_context().run,
-                          args=(loader,), name="jpeg-torch-loader")
-    wt = threading.Thread(target=contextvars.copy_context().run,
-                          args=(writer,), name="jpeg-torch-writer")
-    lt.start()
-    wt.start()
+    legs = [threading.Thread(target=contextvars.copy_context().run,
+                             args=(fn,), name=f"jpeg-torch-{fn.__name__}")
+            for fn in (loader, assembler, emitter)]
+    for leg in legs:
+        leg.start()
     loader_done = False
     try:
         while True:
@@ -325,7 +379,7 @@ def encode_paths(
                 loader_done = True
                 break
             if stop.is_set():
-                continue  # drain after a writer error
+                continue  # drain after an assembler or emitter error
             geom = config.geometry(*item.dims)
             capacity = batch_lib.chunk_capacity_bytes(config, geom)
             compute, write = shares[item.share][2:]
@@ -341,17 +395,17 @@ def encode_paths(
                         owner)
                 else:
                     if cuda:
-                        item.rgb.record_stream(compute.stream)
+                        item.rows.rows.record_stream(compute.stream)
                     payloads, bits = batch_lib.dispatch_uploaded(
-                        item.rgb, config, geom, capacity, owner)
-                # The writer reads them after this thread's next replays
-                # of the key.
+                        item.rows, config, geom, capacity, owner)
+                # The assembler reads them after this thread's next
+                # replays of the key.
                 payloads, bits = payloads.clone(), bits.clone()
                 if cuda:
                     payloads.record_stream(write.stream)
                     bits.record_stream(write.stream)
                 done = compute.ready()
-            write_q.put((item.share, item.paths, item.rgb, geom, capacity,
+            write_q.put((item.share, item.paths, item.rows, geom, capacity,
                          payloads, bits, specs_list, done))
             del item, payloads, bits
     finally:
@@ -362,12 +416,13 @@ def encode_paths(
             if load_q.get() is _DONE:
                 loader_done = True
         write_q.put(_DONE)
-        wt.join()
-        lt.join()
+        for leg in legs:
+            leg.join()
         if cuda:
             for d in set(targets):
                 torch.cuda.synchronize(d)
     if errors:
         raise errors[0]
+    stats.write_seconds = stats.assemble_seconds + stats.emit_seconds
     stats.seconds = time.perf_counter() - t0
     return stats

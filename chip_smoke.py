@@ -29,7 +29,12 @@ file against the single-image card path, a few against the CPU path) and
 the per-block tier (K6 on every plane of the 1080p corpus, against K1 and
 K3), each batch case three times with different content, its chunk
 programs (parallel/batch.program_keys) run eagerly, captured and replayed,
-every file against the eager card path (graphs.disabled()), a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
+every file against the eager card path (graphs.disabled()); the staged
+upload of in-memory arrays (pipeline.upload: encode_batch, encode_array
+and encode_tiled on views of 1080p frames against the CPU path, every
+piece of the upload ring pinned, a pageable input refused by graphs.run,
+the staged GB/s beside the pageable copy's, and encode_batch's ms a call
+of 8 x 1080p), a large image (a 7680x4320 4:4:4 gradient, whose worst case passes
 2^31 bits, against the CPU path) and the stream engine
 (jpeg_encoder_torch.parallel.stream.encode_paths: 64 1080p, 15 4K and 45
 1366x768 BMP files, whose rows are padded, to JFIF files, every file
@@ -125,6 +130,7 @@ jpeg_encoder_tpu.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import statistics
@@ -1518,8 +1524,8 @@ def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
     replayed, encode_batch ms per image (numpy in, JFIF bytes out) and the
     chunk program's events ms and graph ms (dispatch_uploaded on resident
     frames: 21 and 11 1080p frames, 5 and 2 4K frames), and the device
-    ms per image of a chunk by operation. Returns the batch path's launch
-    counts."""
+    ms per image of a chunk by operation. Then the staged upload
+    (staged_upload_checks). Returns the batch path's launch counts."""
     import dataclasses
 
     from jpeg_encoder_torch import graphs, pipeline
@@ -1673,7 +1679,89 @@ def batch_phase(cuda, images_1080, images_4k, card) -> dict[str, int]:
               f"{len(chunk)} x {label}: " + "; ".join(
                   f"{name[:60]} {ms / len(chunk):.4f}" for name, ms in top)
               + f" ({card})", flush=True)
+    staged_upload_checks(cuda, hd, card)
     return counts
+
+
+def staged_upload_checks(cuda, hd, card) -> None:
+    """The staged upload of in-memory arrays (pipeline.upload): files of
+    encode_batch, encode_array and encode_tiled (4 bands) on views of
+    1080p frames (rows reversed, an int64 copy) == the CPU path's; every
+    piece of the main thread's upload ring pinned; a pageable host tensor
+    handed to graphs.run refused, eagerly and at a replay. Prints the
+    staged upload's GB/s (host clock to a device sync) beside the pageable
+    copy it replaces (by events and by the host clock) and the pinned
+    DMA, and encode_batch's ms a call of 8 x 1080p frames."""
+    from jpeg_encoder_torch import graphs, pipeline
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.parallel import batch, tiled
+
+    default = EncoderConfig()
+    for label, views in (("rows reversed", hd[:2, ::-1]),
+                         ("int64", hd[2:4].astype(np.int64))):
+        want = [pipeline.encode_array(np.ascontiguousarray(
+            rgb, dtype=np.uint8), default, device="cpu").file_bytes
+            for rgb in views]
+        for r in range(3):  # eager, capture, replay
+            check(batch.encode_batch(views, default, device=cuda) == want,
+                  f"staged encode_batch ({label}) != the CPU path")
+            check([pipeline.encode_array(rgb, default, device=cuda)
+                   .file_bytes for rgb in views] == want,
+                  f"staged encode_array ({label}) != the CPU path")
+            check(tiled.encode_tiled(views[0], default, 4, device=cuda)
+                  .file_bytes == want[0],
+                  f"staged encode_tiled ({label}) != the CPU path")
+    ring = pipeline.UPLOADS.ring(cuda)
+    check(all(p.is_pinned() for p in ring.pieces),
+          "an upload ring piece is not pinned")
+    key = ("chip_smoke", "pageable input")
+    x = torch.zeros(4, device=cuda)
+    for _ in range(2):  # the eager call, then the capture and a replay
+        graphs.run(key, lambda x: x + 1, {"x": x}, cuda)
+    refused = 0
+    for eager in (False, True):
+        try:
+            with graphs.disabled() if eager else contextlib.nullcontext():
+                graphs.run(key, lambda x: x + 1, {"x": torch.zeros(4)}, cuda)
+        except ValueError:
+            refused += 1
+    check(refused == 2, f"graphs.run took a pageable input "
+          f"({2 - refused} of 2 times: at a replay, eagerly)")
+    arr = np.ascontiguousarray(hd[:8])
+    dev = torch.empty(arr.shape, dtype=torch.uint8, device=cuda)
+
+    def pageable():
+        dev.copy_(torch.from_numpy(arr))
+        torch.cuda.synchronize()
+
+    def staged():
+        pipeline.upload(arr, cuda)
+        torch.cuda.synchronize()
+
+    flat = torch.from_numpy(arr).view(-1)
+    step = ring.pieces[0].numel()
+
+    def fills():
+        for start in range(0, flat.numel(), step):
+            part = flat[start : start + step]
+            ring.fill(ring.pieces[0][: part.numel()], part)
+
+    gb = arr.nbytes / 1e6
+    pinned_gb, pageable_gb = h2d_rates(cuda, arr.shape)
+    staged_ms, pageable_ms = host_ms(staged, 20), host_ms(pageable, 20)
+    fill_ms = host_ms(fills, 20)
+    print(f"staged upload of 8 x 1920x1080 frames ({arr.nbytes / 1e6:.1f} "
+          f"MB, {len(ring.pieces)} pinned pieces of {step >> 20} MiB, host "
+          f"clock): {gb / staged_ms:.2f} GB/s ({staged_ms:.4f} ms) vs the "
+          f"pageable copy it replaces {gb / pageable_ms:.2f} GB/s "
+          f"({pageable_ms:.4f} ms; by events {pageable_gb:.2f}); the host's "
+          f"fill of the pieces alone {gb / fill_ms:.2f} GB/s "
+          f"({torch.get_num_threads()} torch threads), pinned DMA alone "
+          f"{pinned_gb:.2f} GB/s ({card})", flush=True)
+    call_ms = host_ms(lambda: batch.encode_batch(arr, default, device=cuda),
+                      20)
+    print(f"encode_batch 8 x 1920x1080 4:2:0, numpy RGB in -> JFIF bytes "
+          f"out: {call_ms:.4f} ms a call ({card})", flush=True)
 
 
 def h2d_rates(cuda, shape) -> tuple[float, float]:

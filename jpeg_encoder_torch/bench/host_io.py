@@ -27,11 +27,27 @@ times, by the host clock, median of --reps:
 
 The JSON line gives ms a file for each. The threads default to the
 decoder pool's size (one a core).
+
+    python -m jpeg_encoder_torch.bench.host_io --upload [--images 8]
+        [--width 1920] [--height 1080] [--reps 5] [--device cuda|cpu]
+
+times instead the upload of one (images, H, W, 3) uint8 array of corpus
+frames in ordinary pageable memory (what encode_batch and encode_array
+take), in GB/s of the array by the host clock up to a device
+synchronisation, median of --reps: (a) one pageable copy_ ("pageable");
+a pinned copy of the whole array for reference ("pinned_dma"); the
+host's copy alone into one pinned piece of pipeline.PIECE_BYTES, piece
+after piece, (b) by torch's CPU copy_ ("fill_torch", on its intra-op
+threads) and (c) by the native runtime's jt_copy_threads at 1, 2, 4 and 8
+threads ("fill_native_T"); and (d) each of these overlapped with the
+pieces' copies to the card through a pipeline.UploadRing ("ring_torch",
+"ring_native_T"; "ring_torch_<MiB>" at other piece sizes).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import os
 import shutil
 import statistics
@@ -42,6 +58,7 @@ import time
 
 import torch
 
+from jpeg_encoder_torch import native, pipeline
 from jpeg_encoder_torch.bench import timing
 from jpeg_encoder_torch.bench.dataset import write_bmps
 from jpeg_encoder_torch.config import EncoderConfig
@@ -108,9 +125,13 @@ def main(argv: list[str] | None = None) -> int:
                     default=len(os.sched_getaffinity(0)))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--dir", default="")
+    ap.add_argument("--upload", action="store_true",
+                    help="time the upload of a pageable array instead")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     card = timing.card_line(device)
+    if args.upload:
+        return upload(args, device, card)
     root = args.dir or tempfile.mkdtemp(prefix="jpeg_torch_io_")
     try:
         return run(args, device, card, root)
@@ -163,6 +184,93 @@ def run(args, device: torch.device, card: str, root: str) -> int:
     line.update(clock="host", card=card)
     timing.emit(line)
     return 0
+
+
+class NativeRing(pipeline.UploadRing):
+    """An UploadRing whose host copy is jt_copy_threads on `threads`
+    threads."""
+
+    def __init__(self, device, threads: int, **kwargs):
+        super().__init__(device, **kwargs)
+        self.threads = threads
+
+    def fill(self, piece: torch.Tensor, src: torch.Tensor) -> None:
+        native_copy(piece, src, self.threads)
+
+
+def native_copy(dst: torch.Tensor, src: torch.Tensor, threads: int) -> None:
+    """src's bytes into dst (flat contiguous uint8 host tensors of one
+    size) by jt_copy_threads."""
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    native.load().jt_copy_threads(
+        ctypes.cast(dst.data_ptr(), u8p), ctypes.cast(src.data_ptr(), u8p),
+        src.numel(), threads)
+
+
+def gb_per_s(fn, nbytes: int, reps: int, device: torch.device) -> float:
+    """nbytes over the median seconds of fn() followed by a device
+    synchronisation (fn() once to warm first)."""
+
+    def call():
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    return nbytes / (median_ms(call, reps, 1) * 1e-3) / 1e9
+
+
+def upload(args, device: torch.device, card: str) -> int:
+    """The --upload mode (module docstring): one JSON line of GB/s."""
+    if native.load() is None:
+        raise RuntimeError("the native runtime does not load: --upload "
+                           "times its jt_copy_threads")
+    array = timing.corpus_batch(args.height, args.width, args.images)
+    src = torch.from_numpy(array).view(-1)
+    nbytes, reps = src.numel(), args.reps
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    pin = device.type == "cuda"
+    whole = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+    whole.copy_(src)
+    piece = torch.empty(pipeline.PIECE_BYTES, dtype=torch.uint8,
+                        pin_memory=pin)
+    step = piece.numel()
+
+    def fill(copy):
+        def run():
+            for start in range(0, nbytes, step):
+                part = src[start : start + step]
+                copy(piece[: part.numel()], part)
+        return run
+
+    line = {"metric": "upload_gb_per_s", "images": args.images,
+            "geometry": f"{args.width}x{args.height}", "array_mb":
+            nbytes / 1e6, "piece_mb": step / 2**20,
+            "ring_depth": pipeline.RING_DEPTH,
+            "torch_threads": torch.get_num_threads(), "pinned": pin}
+    line["pageable"] = gb_per_s(lambda: dst.copy_(src), nbytes, reps, device)
+    line["pinned_dma"] = gb_per_s(
+        lambda: dst.copy_(whole, non_blocking=True), nbytes, reps, device)
+    line["fill_torch"] = gb_per_s(fill(torch.Tensor.copy_), nbytes, reps,
+                                  device)
+    rings = {"ring_torch": pipeline.UploadRing(device)}
+    for threads in (1, 2, 4, 8):
+        line[f"fill_native_{threads}"] = gb_per_s(
+            fill(lambda d, s, t=threads: native_copy(d, s, t)), nbytes,
+            reps, device)
+        rings[f"ring_native_{threads}"] = NativeRing(device, threads)
+    for mib in (1, 16):
+        rings[f"ring_torch_{mib}"] = pipeline.UploadRing(
+            device, piece_bytes=mib << 20)
+    for name, ring in rings.items():
+        line[name] = gb_per_s(lambda r=ring: r.upload(src, dst), nbytes,
+                              reps, device)
+    check = dst.cpu() if device.type == "cuda" else dst
+    line["exact"] = bool(torch.equal(check, src))
+    timing.log(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else
+                        f"{k}={v}" for k, v in line.items()))
+    line.update(clock="host", card=card)
+    timing.emit(line)
+    return 0 if line["exact"] else 1
 
 
 if __name__ == "__main__":

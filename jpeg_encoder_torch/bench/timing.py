@@ -187,15 +187,36 @@ def eager_keys(win: Window, units: float) -> dict:
 
 def card_line(device: torch.device) -> str:
     """The card's name and power limit as nvidia-smi prints them ("cpu" on
-    the CPU): every number a bench prints stands beside it."""
+    the CPU): every number a bench prints stands beside it. The card is
+    found by its UUID: nvidia-smi numbers the cards in PCI order, whatever
+    CUDA_VISIBLE_DEVICES makes of torch's indices (and the card machine
+    reports no PCI bus id). No card of that UUID raises."""
     if device.type == "cpu":
         return "cpu"
+    uuid = uuid_hex(torch.cuda.get_device_properties(device).uuid)
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", f"--id={device.index}"],
+        ["nvidia-smi", "--query-gpu=uuid,name,power.limit",
+         "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
-    return out.splitlines()[0].strip()
+    ).stdout
+    for line in out.splitlines():
+        if line.count(",") < 2:
+            continue
+        card, rest = line.split(",", 1)
+        name, power = rest.rsplit(",", 1)
+        if uuid_hex(card) == uuid:
+            return f"{name.strip()}, {power.strip()}"
+    raise RuntimeError(f"nvidia-smi lists no card of {device}'s UUID {uuid}")
+
+
+def uuid_hex(uuid) -> str:
+    """A card's UUID as 32 lower-case hex digits: torch's (its bytes, or
+    its text) or nvidia-smi's ("GPU-" and the dashed form)."""
+    raw = getattr(uuid, "bytes", None)
+    if isinstance(raw, (bytes, bytearray)):
+        return bytes(raw).hex()
+    text = str(uuid).strip().lower()
+    return text.removeprefix("gpu-").replace("-", "")
 
 
 def parser(description: str, min_seconds: float = 3.0):

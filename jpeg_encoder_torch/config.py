@@ -193,15 +193,10 @@ class EncoderConfig:
     # to None. Extension beyond the reference (its tables are fixed;
     # jpeg_theory.md:162 lists quality scaling as unimplemented).
     quality: int | None = None
-    # Run the RealDCT default path through the transposed-chain Pallas
-    # kernel (kernels/dct_pallas.real_dct_quant_planes_zigzag_pallas_t)
-    # instead of the XLA ops chain. Bit-identical output. None = auto
-    # (currently: always the kernel): the Pallas chain's cost is stable
-    # (~80% of VPU ideal) while the XLA chain fusion's emitter windowing
-    # is bistable per program structure; with in-kernel DC differencing
-    # it measures 1529/1146/801 vs 1527/960/753 Mpix/s at
-    # 4:2:0/4:2:2/4:4:4 (tools/exp_dct_chain_t.py, chip_session.log r2).
-    # False forces the XLA ordered chain (the bit-exactness oracle path).
+    # Kept so that a config's fields equal the JAX package's, where it
+    # picks between two forms of that package's RealDCT. The port ignores
+    # it: RealDCT runs K1 (or K2 under fast_dct) whatever its value, and
+    # no program key, output byte or speed depends on it.
     transposed_dct: bool | None = None
     # Two-pass optimized Huffman coding (libjpeg's -optimize analog): a
     # statistics pass histograms the scan's symbols on device, optimal

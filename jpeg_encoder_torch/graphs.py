@@ -30,10 +30,13 @@ names one), and keeps one cache a device. For each key:
 
 An input named in `pad` reaches fn with zero rows appended up to pad[name]
 leading rows: its buffer is zeroed once, and each call copies the input
-into its top rows. An input in pinned host memory is copied to the card
-without the host waiting (the eager call and every replay): its owner
-writes to it again only after the copy has completed (pipeline.Staging
-waits on an event recorded on the current stream after the call).
+into its top rows. On a card an input lies on the device or in pinned
+host memory, and a pageable host input raises (check_inputs): nothing
+goes up from pageable memory (pipeline.upload stages an array through a
+pinned ring first). A pinned input is copied to the card without the host
+waiting (the eager call and every replay): its owner writes to it again
+only after the copy has completed (pipeline.Staging waits on an event
+recorded on the current stream after the call).
 
 A replay returns the same output tensors every time, and the next replay of
 its key overwrites them. The stream and owner in the key keep every other
@@ -192,16 +195,30 @@ class Program:
                 f"with {sorted(self.inputs)} (a field missing from its key)")
         for name, src in inputs.items():
             dst = self.inputs[name]
+            check_inputs({name: src}, dst.device)
             if src.shape != dst.shape or src.dtype != dst.dtype:
                 raise ValueError(
                     f"input {name!r}: {src.dtype} {tuple(src.shape)} where "
                     f"the program was captured with {dst.dtype} "
                     f"{tuple(dst.shape)} (a field missing from its key)")
-            dst.copy_(src, non_blocking=src.is_pinned())
+            dst.copy_(src, non_blocking=True)
         self.graph.replay()
         _build.add_launches(self.launches)
         self.replays += 1
         return self.outputs
+
+
+def check_inputs(inputs: dict, device: torch.device) -> None:
+    """Refuse a program input in pageable host memory on a card: its copy
+    would be a synchronous one from pageable memory."""
+    if device.type != "cuda":
+        return
+    for name, t in inputs.items():
+        if t.device.type == "cpu" and not t.is_pinned():
+            raise ValueError(
+                f"input {name!r} lies in pageable host memory; a program "
+                f"on {device} takes device tensors or pinned host ones "
+                "(pipeline.upload stages a host array)")
 
 
 def max_pool_bytes(device: torch.device) -> int:
@@ -262,6 +279,7 @@ def capture(fn, inputs: dict, device: torch.device, pad: dict | None = None,
             record=record) -> Program:
     """The Program of fn on static_inputs: the warm-up, then record, with
     the operand lookups of both pinned."""
+    check_inputs(inputs, device)
     buffers, views = static_inputs(inputs, device, pad)
     with pinned() as operands:
         fn(**buffers)
@@ -353,18 +371,19 @@ def _graphed(device: torch.device) -> bool:
 
 def eager(fn, inputs: dict, device: torch.device, pad: dict | None = None):
     """fn(**inputs) on device without a graph."""
+    check_inputs(inputs, device)
     if pad:
         return fn(**static_inputs(inputs, device, pad)[0])
-    return fn(**{name: t.to(device, non_blocking=t.is_pinned())
+    return fn(**{name: t.to(device, non_blocking=True)
                  for name, t in inputs.items()})
 
 
 def run(key: tuple, fn, inputs: dict, device: torch.device,
         pad: dict | None = None, owner=None):
     """fn(**inputs) on device, through the cache of programs on a card
-    (module docstring), eagerly on the CPU. inputs: name -> tensor, on the
-    host or on device; pad: name -> the rows fn takes that input at;
-    owner: who reads the outputs until its next call of the key (a
+    (module docstring), eagerly on the CPU. inputs: name -> tensor, on
+    device or, on a card, in pinned host memory (pageable raises); pad:
+    name -> the rows fn takes that input at; owner: who reads the outputs until its next call of the key (a
     hashable no two threads use at once; the calling thread by default)."""
     if not _graphed(device):
         return eager(fn, inputs, device, pad)

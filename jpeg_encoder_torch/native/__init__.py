@@ -82,6 +82,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         u8pp, i64p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,
         ctypes.c_int32,
     ]
+    lib.jt_copy_threads.restype = None
+    lib.jt_copy_threads.argtypes = [u8p, u8p, ctypes.c_int64, ctypes.c_int32]
     lib.jt_stuff_bytes.restype = ctypes.c_int64
     lib.jt_stuff_bytes.argtypes = [u8p, ctypes.c_int64, u8p]
     lib.jt_optimal_huffman.restype = ctypes.c_int

@@ -234,6 +234,31 @@ int jt_bmp_decode_batch(const uint8_t* const* bufs, const int64_t* lens,
   return status.load();
 }
 
+// Copy n bytes from src to dst on num_threads threads, each one contiguous
+// share (hardware_concurrency where num_threads <= 0): the host's copy of
+// an array into a pinned upload piece, timed by bench/host_io.py --upload
+// beside torch's own copy.
+void jt_copy_threads(uint8_t* dst, const uint8_t* src, int64_t n,
+                     int32_t num_threads) {
+  if (n <= 0) return;
+  if (num_threads <= 0)
+    num_threads = static_cast<int32_t>(std::thread::hardware_concurrency());
+  if (num_threads <= 1) {
+    std::memcpy(dst, src, n);
+    return;
+  }
+  const int64_t share = (n + num_threads - 1) / num_threads;
+  std::vector<std::thread> pool;
+  pool.reserve(num_threads);
+  for (int32_t t = 0; t < num_threads; ++t) {
+    const int64_t lo = t * share;
+    if (lo >= n) break;
+    const int64_t len = lo + share > n ? n - lo : share;
+    pool.emplace_back([=]() { std::memcpy(dst + lo, src + lo, len); });
+  }
+  for (auto& t : pool) t.join();
+}
+
 // ---------------------------------------------------------------------------
 // Scan payload byte stuffing (file.rs:92-103): 0xFF -> 0xFF 0x00
 // ---------------------------------------------------------------------------

@@ -20,10 +20,13 @@ row, an image or a restart interval, so they bound neither). With
 contiguous shares, one an entry, as P(DATA_AXIS) splits the JAX batch:
 each share is uploaded and enqueued on its own card and stream before any
 share is fetched, and the files come back in input order. Each share is
-dispatch_chunk (device work on the current stream, enqueued, nothing
-synchronised; parallel/stream.py uploads the files' stored rows on its own
-and calls dispatch_uploaded with them, as bmp.Rows: the program reorders
-them first, bmp.rows_to_rgb), fetch_chunk (one copy of the bit counts,
+dispatch_chunk (on a card the share goes up through the calling thread's
+pinned upload ring, pipeline.upload, piece after piece, each piece's copy
+to the card overlapping the host's filling of the next; device work on
+the current stream, enqueued, nothing synchronised; parallel/stream.py
+uploads the files' stored rows on its own and calls dispatch_uploaded
+with them, as bmp.Rows: the program reorders them first,
+bmp.rows_to_rgb), fetch_chunk (one copy of the bit counts,
 then one copy of every row up to the longest payload) and assemble_chunk
 (JFIF files on the host; a member whose payload overflowed the chunk's
 shared capacity is re-encoded alone through pipeline.encode_array from
@@ -179,12 +182,6 @@ def _encode_entries(z, config, geom, capacity, luts=None):
     return data.reshape(batch, -1, capacity), bits.reshape(batch, -1)
 
 
-def _host(images) -> torch.Tensor:
-    """(B, H, W, 3) uint8 host images as a CPU tensor (no copy where they
-    are contiguous uint8)."""
-    return torch.from_numpy(np.ascontiguousarray(images, dtype=np.uint8))
-
-
 def _form(images):
     """A chunk as a program takes it, (B, H, W, 3) RGB or bmp.Rows of (B,
     H, stride) stored rows: (its source form, the program's inputs, a
@@ -242,11 +239,12 @@ def dispatch_chunk(
     owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Enqueue the encode of one (B, H, W, 3) uint8 host chunk on `device`:
-    dispatch_uploaded's program, given the host chunk, so its one upload
-    (a synchronous copy from pageable memory) lands in the program's
-    buffer. owner: graphs.run's."""
-    return _batch(_host(images), config, geom, capacity,
-                  devices_lib.resolve_device(device), owner)
+    the chunk goes up through the calling thread's pinned upload ring
+    (pipeline.upload; on the CPU it is used as it is), then
+    dispatch_uploaded's program runs on it. owner: graphs.run's."""
+    device = devices_lib.resolve_device(device)
+    return _batch(pipeline.upload(images, device), config, geom, capacity,
+                  device, owner)
 
 
 def dispatch_uploaded(
@@ -410,10 +408,11 @@ def dispatch_optimized_stats(
     owner=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Enqueue the statistics pass of one optimize host chunk on `device`:
-    optimized_stats_uploaded's program, given the host chunk (its one
-    upload lands in the program's buffer)."""
-    return _stats(_host(images), config, geom,
-                  devices_lib.resolve_device(device), owner)
+    optimized_stats_uploaded's program on the chunk, uploaded as
+    dispatch_chunk uploads it."""
+    device = devices_lib.resolve_device(device)
+    return _stats(pipeline.upload(images, device), config, geom, device,
+                  owner)
 
 
 def optimized_stats_uploaded(
@@ -456,16 +455,17 @@ def dispatch_optimized_encode(
     """Enqueue the encode pass of an optimize chunk: its entries (on their
     device) with one (dc, ac) table pair per image, as dispatch_chunk's
     result. One program (the "batch_custom" key, graphs.run with `owner`):
-    a replay copies the entries and the (B, 2, 256) host tables into its
-    buffers."""
+    a replay copies the entries and the (B, 2, 256) host tables (pinned
+    on a card) into its buffers."""
 
     def program(z, dc_luts, ac_luts):
         return _encode_entries(z, config, geom, capacity, (dc_luts, ac_luts))
 
     images = z.shape[0] // geom.num_scan_entries
     key = program_keys(geom, config, capacity, images)["batch_custom"]
-    inputs = {"z": z, "dc_luts": torch.from_numpy(dc_luts),
-              "ac_luts": torch.from_numpy(ac_luts)}
+    inputs = {"z": z,
+              "dc_luts": pipeline.pinned(torch.from_numpy(dc_luts), z.device),
+              "ac_luts": pipeline.pinned(torch.from_numpy(ac_luts), z.device)}
     return graphs.run(key, program, inputs, z.device, owner=owner)
 
 

@@ -423,14 +423,14 @@ def band_front(
     its rows at or past the image height zeroed in the Y, Cb and Cr
     planes. -> (the stack's (count * E_band, 64) scan entries, band after
     band; (count, 3) int32 final DC predictors of each band,
-    ops/entropy.final_dc)."""
+    ops/entropy.final_dc). Only those image rows go up, through
+    pipeline.upload (on a card the calling thread's pinned ring)."""
     band_geom = _band_geometry(geom, band_rows * 8 * geom.v_factor)
     top = first * band_geom.height
     rows = max(0, min(rgb.shape[0] - top, count * band_geom.height))
-    live = torch.from_numpy(
-        np.ascontiguousarray(rgb[top : top + rows], dtype=np.uint8))
-    return stack_front(live, config, band_geom, first, count,
-                       torch.device(device))
+    device = torch.device(device)
+    live = pipeline.upload(rgb[top : top + rows], device)
+    return stack_front(live, config, band_geom, first, count, device)
 
 
 def stack_front(

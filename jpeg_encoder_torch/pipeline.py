@@ -16,7 +16,11 @@ rows as stored (io/bmp.read(path, out=...)) into a host buffer of its
 thread's (Staging: pinned on a card, one a device and geometry, a few a
 thread), uploads them as they are, and the program's first op strips,
 flips and swaps them (bmp.rows_to_rgb). encode_array takes either form,
-an RGB array or bmp.Rows; the form is part of the program's key.
+an RGB array or bmp.Rows; the form is part of the program's key. The
+in-memory entries (encode_array of an array, parallel/batch's chunks,
+parallel/tiled's band rows) go up through upload: on a card the calling
+thread's ring of pinned pieces (UploadRing), so that nothing goes up
+from pageable memory.
 
 encode_array runs its device programs through graphs.run: on a card, one
 CUDA graph a configuration (program_keys), replayed from the second call
@@ -408,6 +412,120 @@ class StagingBuffers:
 
 STAGING = StagingBuffers()
 
+# The upload ring of each thread and device (UploadRing): pieces of
+# PIECE_BYTES, RING_DEPTH of them, so a thread pins PIECE_BYTES *
+# RING_DEPTH bytes a card, whatever the size of the arrays it uploads.
+PIECE_BYTES = 4 << 20
+RING_DEPTH = 4
+
+
+class UploadRing:
+    """Host pieces (pinned on a card; not pinned raises) that upload a host
+    tensor's bytes to a device one piece after another: each piece is
+    filled on the host (torch's copy, on its intra-op threads), then
+    copied to its offset of the destination without the host waiting, and
+    an event is recorded after that copy. A piece is filled again only
+    after its event, as parallel/stream.py's pinned ring waits, so the
+    host fills piece k + 1 while piece k goes up."""
+
+    def __init__(self, device: torch.device, piece_bytes: int = PIECE_BYTES,
+                 depth: int = RING_DEPTH):
+        self.device = device
+        pin = device.type == "cuda"
+        self.pieces = []
+        for _ in range(depth):
+            piece = torch.empty(piece_bytes, dtype=torch.uint8,
+                                pin_memory=pin)
+            if pin and not piece.is_pinned():
+                raise RuntimeError(
+                    f"could not pin a {piece_bytes}-byte upload piece")
+            self.pieces.append(piece)
+        self.copied = [torch.cuda.Event() if pin else None
+                       for _ in range(depth)]
+        self.turn = 0
+
+    def take(self) -> int:
+        """The next piece's index, once the copy out of it has completed."""
+        i = self.turn % len(self.pieces)
+        self.turn += 1
+        if self.copied[i] is not None:
+            self.copied[i].synchronize()
+        return i
+
+    def release(self, i: int) -> None:
+        """Mark the copy out of piece i, enqueued on the device's current
+        stream."""
+        if self.copied[i] is not None:
+            self.copied[i].record(torch.cuda.current_stream(self.device))
+
+    def staged(self, host: torch.Tensor) -> torch.Tensor:
+        """A new tensor on the ring's device holding host's bytes (a host
+        tensor), enqueued on the current stream."""
+        host = host.contiguous()
+        out = torch.empty(host.shape, dtype=host.dtype, device=self.device)
+        self.upload(host.view(-1).view(torch.uint8),
+                    out.view(-1).view(torch.uint8))
+        return out
+
+    def upload(self, src: torch.Tensor, dst: torch.Tensor) -> None:
+        """src's bytes (a flat uint8 host tensor) into dst (flat uint8 on
+        the ring's device), enqueued on the current stream."""
+        piece_bytes = self.pieces[0].numel()
+        for start in range(0, src.numel(), piece_bytes):
+            stop = min(start + piece_bytes, src.numel())
+            i = self.take()
+            piece = self.pieces[i][: stop - start]
+            self.fill(piece, src[start:stop])
+            dst[start:stop].copy_(piece, non_blocking=True)
+            self.release(i)
+
+    def fill(self, piece: torch.Tensor, src: torch.Tensor) -> None:
+        """The host's copy of src into piece."""
+        piece.copy_(src)
+
+
+class UploadRings:
+    """Each thread's UploadRing, one a device (no two threads share a
+    piece)."""
+
+    def __init__(self):
+        self._local = threading.local()
+
+    def ring(self, device: torch.device) -> UploadRing:
+        held = getattr(self._local, "held", None)
+        if held is None:
+            held = self._local.held = {}
+        if device not in held:
+            held[device] = UploadRing(device)
+        return held[device]
+
+
+UPLOADS = UploadRings()
+
+
+def upload(host: np.ndarray | torch.Tensor,
+           device: torch.device) -> torch.Tensor:
+    """A host image or batch as a program input on device: an array is
+    taken as np.ascontiguousarray(host, dtype=np.uint8) (no copy where it
+    is contiguous uint8), a tensor as it is. On a card the bytes of one
+    in pageable memory go up through the calling thread's UploadRing into
+    a new device tensor of the same shape (enqueued on the current stream;
+    the caller may reuse its array as soon as this returns); a pinned host
+    tensor or a device tensor is returned as it is (graphs.run copies a
+    pinned one without waiting). On the CPU -> the CPU tensor."""
+    if not isinstance(host, torch.Tensor):
+        host = torch.from_numpy(np.ascontiguousarray(host, dtype=np.uint8))
+    if (device.type != "cuda" or host.device.type != "cpu"
+            or host.is_pinned()):
+        return host
+    return UPLOADS.ring(device).staged(host)
+
+
+def pinned(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A small host tensor (a table) as a program input on device: a
+    pinned copy on a card, where graphs.run refuses pageable memory."""
+    return host.pin_memory() if device.type == "cuda" else host
+
 
 def check_restart_geometry(geom: FrameGeometry) -> None:
     """Refuse restart markers on the quirk geometries.
@@ -583,7 +701,9 @@ def encode_array(
     out=...)): they are uploaded as they are (from pinned memory without
     waiting, when they lie there: their owner keeps them until the copy
     has completed) and reordered at the head of the program
-    (bmp.rows_to_rgb); the bytes are the same.
+    (bmp.rows_to_rgb); the bytes are the same. On a card an input in
+    pageable host memory, an array among them, goes up through the
+    calling thread's pinned upload ring (upload).
 
     Every EncoderConfig option runs: restart_interval frames the scan
     into independently coded intervals (DRI/RSTn); optimize_huffman
@@ -604,13 +724,12 @@ def encode_array(
     check_config(config)
     if isinstance(rgb, bmp.Rows):
         height, width = rgb.height, rgb.width
-        source, image = "bmp-rows", {"rows": rgb.rows}
+        source, name, host = "bmp-rows", "rows", rgb.rows
     else:
         if rgb.ndim != 3 or rgb.shape[2] != 3:
             raise ValueError("expected (H, W, 3) RGB input")
         height, width = rgb.shape[:2]
-        source, image = "rgb", {"rgb": torch.from_numpy(
-            np.ascontiguousarray(rgb, dtype=np.uint8))}
+        source, name, host = "rgb", "rgb", rgb
     geom = config.geometry(width, height)
     restart = config.restart_interval
     if return_coeffs and config.optimize_huffman:
@@ -622,6 +741,7 @@ def encode_array(
     if restart is not None:
         check_restart_geometry(geom)
     device = resolve_device(device)
+    image = {name: upload(host, device)}
     capacity = _initial_capacity_bytes or initial_capacity_bytes(geom, config)
     keys = program_keys(geom, config, capacity, return_coeffs, packer,
                         source)
@@ -651,7 +771,8 @@ def encode_array(
         specs, host_luts = optimal_specs_and_luts(hist.cpu().numpy(), "cpu")
         first = graphs.run(
             keys["custom"], custom_program,
-            {"z": z, "dc_lut": host_luts[0], "ac_lut": host_luts[1]}, device)
+            {"z": z, "dc_lut": pinned(host_luts[0], device),
+             "ac_lut": pinned(host_luts[1], device)}, device)
     else:
         first = graphs.run(
             keys["scan"],

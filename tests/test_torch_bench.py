@@ -263,3 +263,59 @@ def test_module_main_on_card(run, cuda, capsys):
     line = last_json(capsys)
     assert all(key in line for key in keys), line
     assert line["card"] != "cpu"
+
+
+# --------------------------------------------------------------------------
+# The card line: the card torch was given, found by its UUID
+# --------------------------------------------------------------------------
+
+SMI = ("GPU-11111111-2222-3333-4444-555555555555, NVIDIA H100 80GB HBM3, "
+       "700.00 W\n"
+       "GPU-aaaaaaaa-bbbb-cccc-dddd-eeeeeeeeeeee, NVIDIA H100 80GB HBM3, "
+       "450.00 W\n")
+
+
+class _Uuid:
+    """torch's UUID object: its bytes."""
+
+    def __init__(self, text):
+        self.bytes = bytes.fromhex(text.replace("-", ""))
+
+
+def _fake_card(monkeypatch, uuid):
+    """nvidia-smi lists two cards in PCI order; torch's cuda:0 is the one
+    of `uuid` (as under CUDA_VISIBLE_DEVICES=1). -> the argv nvidia-smi
+    was run with."""
+    import subprocess
+    from types import SimpleNamespace
+
+    calls = []
+
+    def run(argv, **kwargs):
+        calls.append(argv)
+        return subprocess.CompletedProcess(argv, 0, stdout=SMI, stderr="")
+
+    monkeypatch.setattr(timing.subprocess, "run", run)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(uuid=uuid))
+    return calls
+
+
+@pytest.mark.parametrize("uuid", [
+    _Uuid("aaaaaaaa-bbbb-cccc-dddd-eeeeeeeeeeee"),
+    "aaaaaaaa-bbbb-cccc-dddd-eeeeeeeeeeee",
+    "GPU-AAAAAAAA-BBBB-CCCC-DDDD-EEEEEEEEEEEE",
+], ids=["bytes", "text", "nvidia-smi text"])
+def test_card_line_names_the_card_by_uuid(monkeypatch, uuid):
+    calls = _fake_card(monkeypatch, uuid)
+    line = timing.card_line(torch.device("cuda", 0))
+    assert line == "NVIDIA H100 80GB HBM3, 450.00 W"
+    assert not any(arg.startswith("--id") for arg in calls[0])
+    assert "--query-gpu=uuid,name,power.limit" in calls[0]
+
+
+def test_card_line_raises_without_its_card(monkeypatch):
+    _fake_card(monkeypatch, _Uuid("99999999-2222-3333-4444-555555555555"))
+    with pytest.raises(RuntimeError, match="no card"):
+        timing.card_line(torch.device("cuda", 0))
+    assert timing.card_line(torch.device("cpu")) == "cpu"

@@ -86,10 +86,13 @@ names for it, its per-layer metrics not null. The
 staged-read path runs encode_file's staged read (the BMP file's stored
 rows read into the thread's pinned staging buffer, uploaded as they are
 and reordered at the head of the program) over the benchmark's 8 corpus
-contents at 1920x1080 and at 1366x768 (rows padded), every file against
-the eager RGB path's, the buffers required pinned; it prints the upload's
-GB/s, the reorder's device ms and a request's ms against the decoded
-path's. The
+contents at 1920x1080, 1366x768 (rows padded) and 3840x2160, every file
+against the eager RGB path's, the buffers required pinned; it prints the
+upload's GB/s, the reorder's device ms and a request's ms against the
+decoded path's. It fails unless the native runtime loads and each
+encode_file read its rows as bmp.file_ranges(W, H) > 1 ranges on the
+native read pool (the trace's read.ranges), the rows equal one pread's,
+and it prints one pread against the split read, ms a file. The
 bench path runs every measurement module (jpeg_encoder_torch/bench) in this
 process at reduced sizes, between a reset and a read of the launch counts
 (a call captured into a CUDA graph counts once): the throughput line, the
@@ -854,9 +857,9 @@ def e2e_phase(cuda, images_1080, images_4k, tmp) -> dict[str, int]:
     return counts
 
 
-# The staged read's geometries: 1920x1080 (rows of 5760 bytes) and
-# 1366x768, whose 4098-byte rows the file pads to 4100.
-STAGED_GEOMETRIES = ((1080, 1920), (768, 1366))
+# The staged read's geometries: 1920x1080 (rows of 5760 bytes),
+# 1366x768, whose 4098-byte rows the file pads to 4100, and 3840x2160.
+STAGED_GEOMETRIES = ((1080, 1920), (768, 1366), (2160, 3840))
 
 
 def quartiles(values: list[float]) -> str:
@@ -874,11 +877,17 @@ def staged_read_phase(cuda, card, tmp) -> dict[str, int]:
     graphs.disabled()); the thread's buffers pinned. Then prints the
     upload's GB/s from the pinned buffer and the reorder's device ms (CUDA
     events), and a request's ms against the decoded path's (bmp.read,
-    encode_array of the array, the write), in alternated rounds."""
+    encode_array of the array, the write), in alternated rounds. The read
+    is split (split_read_checks): the native runtime loaded, each
+    encode_file read bmp.file_ranges(width, height) > 1 ranges, the rows
+    equal one pread's."""
     from benchmark import contents
-    from jpeg_encoder_torch import graphs, pipeline
+    from jpeg_encoder_torch import graphs, native, pipeline
     from jpeg_encoder_torch.io import bmp
 
+    check(native.load() is not None,
+          "staged read: the native runtime does not load, so encode_file "
+          "would read in Python, one range")
     want = {}
     for height, width in STAGED_GEOMETRIES:
         for k in range(8):
@@ -906,7 +915,8 @@ def staged_read_phase(cuda, card, tmp) -> dict[str, int]:
         upload_ms = cuda_ms(lambda: rows.copy_(buffer, non_blocking=True))
         stored = rows.view(height, bmp.row_stride(width))
         reorder_ms = cuda_ms(lambda: bmp.rows_to_rgb(stored, width))
-        print(f"staged read {width}x{height}: {len(want) // 2} files x 2, "
+        print(f"staged read {width}x{height}: "
+              f"{len(want) // len(STAGED_GEOMETRIES)} files x 2, "
               f"every file == the eager RGB path's; pinned buffer of "
               f"{buffer.numel()} B; upload {upload_ms:.4f} ms "
               f"({buffer.numel() / upload_ms / 1e6:.2f} GB/s); reorder "
@@ -937,7 +947,57 @@ def staged_read_phase(cuda, card, tmp) -> dict[str, int]:
           f"{len(ms['staged'])}, alternated rounds of 8: staged "
           f"{quartiles(ms['staged'])}, decoded {quartiles(ms['decoded'])} "
           f"({card})", flush=True)
+    split_read_checks(cuda, card, list(want))
     return counts
+
+
+def split_read_checks(cuda, card, paths: list[str]) -> None:
+    """encode_file's split read at each of STAGED_GEOMETRIES: under
+    trace.recording() one encode_file of each file counts
+    bmp.file_ranges(width, height) > 1 ranges (read.ranges), and the split
+    rows equal one pread's, byte for byte; then
+    one pread against the split read into the thread's pinned staging
+    buffer, ms a file, median [quartiles] of alternated rounds of the
+    geometry's files."""
+    from jpeg_encoder_torch import native, pipeline, trace
+    from jpeg_encoder_torch.io import bmp
+
+    for height, width in STAGED_GEOMETRIES:
+        ranges = bmp.file_ranges(width, height)
+        check(ranges > 1, f"split read {width}x{height}: "
+              f"bmp.file_ranges is {ranges}")
+        mine = [p for p in paths if f"_{width}x{height}_" in p]
+        with trace.recording() as recorder:
+            for src in mine:
+                pipeline.encode_file(src, src[:-4] + ".jpg", device=cuda)
+        got = recorder.counters.get("read.ranges", 0)
+        check(got == ranges * len(mine),
+              f"split read {width}x{height}: {got} ranges in {len(mine)} "
+              f"encode_file reads, not {ranges} each")
+        buffer = pipeline.STAGING.take(cuda, width, height).buffer
+        one = torch.empty(buffer.numel(), dtype=torch.uint8, pin_memory=True)
+        for src in mine:
+            split = bmp.read(src, out=buffer, ranges=ranges).rows
+            whole = bmp.read(src, out=one).rows
+            check(torch.equal(split, whole),
+                  f"split read {src}: rows != one pread's")
+        ways = {"one pread": lambda src: bmp.read(src, out=buffer),
+                "split": lambda src: bmp.read(src, out=buffer,
+                                              ranges=ranges)}
+        ms = {name: [] for name in ways}
+        for turn in range(8):
+            for name in (("one pread", "split") if turn % 2 == 0
+                         else ("split", "one pread")):
+                for src in mine:
+                    t0 = time.perf_counter()
+                    ways[name](src)
+                    ms[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"split read {width}x{height}: {len(mine)} files, "
+              f"{ranges} ranges a read == one pread's rows, pool of "
+              f"{native.load().jt_read_pool_threads()} threads; ms a file, "
+              f"median [quartiles] of {len(ms['split'])}, alternated rounds: "
+              f"one pread {quartiles(ms['one pread'])}, split "
+              f"{quartiles(ms['split'])} ({card})", flush=True)
 
 
 def program_of(cuda, key):
@@ -3001,9 +3061,11 @@ def trace_phase(cuda, images_1080, card, tmp) -> dict[str, int]:
 def bench_runs(tmp: str, launches: dict) -> list[tuple]:
     """(label, module, argv, JSON keys its last line must have) of every
     bench module at reduced sizes: windows of 0.1 s, a dataset of 16 (and
-    8 optimized) 1080p files, the host I/O of 16 1080p files, the parity
-    sweep in all three modes at full size. Scaling runs the batch curve and four shares of the card (its
-    weak-scaling loop; on one card its default is that loop's first row)."""
+    8 optimized) 1080p files, the host I/O of 16 1080p files and the split
+    read's candidates at 1080p and 4K, the parity sweep in all three modes
+    at full size. Scaling runs the batch curve and four shares of the card
+    (its weak-scaling loop; on one card its default is that loop's first
+    row)."""
     short = ["--min-seconds", "0.1"]
     dataset = ["--images", "16", "--width", "1920", "--height", "1080",
                "--dir", os.path.join(tmp, "dataset"), "--verify", "4"]
@@ -3027,6 +3089,8 @@ def bench_runs(tmp: str, launches: dict) -> list[tuple]:
          ("kernels", "stages", "matmul_ms")),
         ("host io", "host_io", ["--images", "16", "--reps", "3"],
          ("probe_serial", "read_native_pool", "emit_alone")),
+        ("host io split", "host_io", ["--split", "--reps", "9"],
+         ("geometries", "pool_threads", "exact")),
         ("parity color", "parity", ["--color"], ("triples", "mismatched")),
         ("parity corpus", "parity", ["--corpus"], ("cases", "identical")),
         ("parity geometry", "parity", [], ("cases", "identical")),

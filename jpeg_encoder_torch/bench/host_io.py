@@ -42,13 +42,32 @@ threads) and (c) by the native runtime's jt_copy_threads at 1, 2, 4 and 8
 threads ("fill_native_T"); and (d) each of these overlapped with the
 pieces' copies to the card through a pipeline.UploadRing ("ring_torch",
 "ring_native_T"; "ring_torch_<MiB>" at other piece sizes).
+
+    python -m jpeg_encoder_torch.bench.host_io --split [--reps 21]
+        [--geometries 1920x1080,3840x2160] [--device cuda|cpu]
+
+times instead one page-cached corpus BMP's stored rows read into the
+pinned buffer of its geometry (pipeline.STAGING.take, as encode_file
+reads them), at each geometry, by the host clock, the median of --reps
+rounds (each candidate once a round, in a new order), in ms a file and
+GB/s of the rows, by each candidate (split_candidates): (a) one pread ("one_pread": bmp.read(path, out=));
+(b) N contiguous range preads on the native read pool, whose threads
+start once a process ("pool_N": bmp.read(path, out=, ranges=N)); (c) the
+same N ranges on threads started for each call ("threads_N":
+jt_read_ranges_threads); (d) mmap of the file with MAP_POPULATE, torch's
+CPU copy_ of the rows on its intra-op threads, and the munmap
+("mmap_copy"); and encode_file's read ("chosen": bmp.file_ranges of the
+geometry), for N in 2, 4, 8 and the CPUs the process may use. Every
+candidate's rows must equal one pread's ("exact").
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import mmap
 import os
+import random
 import shutil
 import statistics
 import sys
@@ -123,15 +142,28 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--height", type=int, default=1080)
     ap.add_argument("--threads", type=int,
                     default=len(os.sched_getaffinity(0)))
-    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--reps", type=int, default=None,
+                    help="repetitions (default 5; 21 with --split)")
     ap.add_argument("--dir", default="")
     ap.add_argument("--upload", action="store_true",
                     help="time the upload of a pageable array instead")
+    ap.add_argument("--split", action="store_true",
+                    help="time one file's read as split ranges instead")
+    ap.add_argument("--geometries", default="1920x1080,3840x2160",
+                    help="WxH,... of the --split files")
     args = ap.parse_args(argv)
+    if args.reps is None:
+        args.reps = 21 if args.split else 5
     device = resolve_device(args.device)
     card = timing.card_line(device)
     if args.upload:
         return upload(args, device, card)
+    if args.split:
+        root = tempfile.mkdtemp(prefix="jpeg_torch_split_")
+        try:
+            return split(args, device, card, root)
+        finally:
+            shutil.rmtree(root)
     root = args.dir or tempfile.mkdtemp(prefix="jpeg_torch_io_")
     try:
         return run(args, device, card, root)
@@ -271,6 +303,132 @@ def upload(args, device: torch.device, card: str) -> int:
     line.update(clock="host", card=card)
     timing.emit(line)
     return 0 if line["exact"] else 1
+
+
+def split_counts() -> list[int]:
+    """The range counts of the --split candidates: 2, 4, 8 and the CPUs
+    this process may use."""
+    return sorted({2, 4, 8, len(os.sched_getaffinity(0))})
+
+
+def split_candidates() -> list[str]:
+    """The names of the --split candidates (module docstring)."""
+    counts = split_counts()
+    return ["one_pread", *(f"pool_{n}" for n in counts),
+            *(f"threads_{n}" for n in counts), "mmap_copy", "chosen"]
+
+
+def threads_read(lib, path, buffer: torch.Tensor, ranges: int) -> None:
+    """A file's rows into buffer as `ranges` range preads on threads
+    started for this call (jt_read_ranges_threads), opened as bmp.read
+    opens it."""
+    fd, width, height = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    offset, error, used = ctypes.c_int64(), ctypes.c_int32(), ctypes.c_int32()
+    rc = lib.jt_bmp_open_rows(
+        os.fsencode(path), ctypes.byref(fd), ctypes.byref(width),
+        ctypes.byref(height), ctypes.byref(offset), ctypes.byref(error))
+    if rc != 0:
+        raise bmp._native_error(rc, error.value, path)
+    try:
+        rc = lib.jt_read_ranges_threads(
+            fd.value, ctypes.cast(buffer.data_ptr(),
+                                  ctypes.POINTER(ctypes.c_uint8)),
+            height.value * bmp.row_stride(width.value), offset.value, ranges,
+            ctypes.byref(used), ctypes.byref(error))
+    finally:
+        os.close(fd.value)
+    if rc != 0:
+        raise bmp._native_error(rc, error.value, path)
+
+
+_LIBC = ctypes.CDLL(None, use_errno=True)
+_LIBC.mmap.restype = ctypes.c_void_p
+_LIBC.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_long]
+_LIBC.munmap.restype = ctypes.c_int
+_LIBC.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+
+
+def mmap_read(path, buffer: torch.Tensor) -> None:
+    """A file's rows into buffer by mmap (MAP_POPULATE: the pages mapped
+    in the call), torch's CPU copy_ of them, munmap."""
+    fd = os.open(path, os.O_RDONLY | os.O_CLOEXEC)
+    try:
+        size = os.fstat(fd).st_size
+        width, height, offset = bmp._header(os.pread(fd, 54, 0), size)
+        address = _LIBC.mmap(None, size, mmap.PROT_READ,
+                             mmap.MAP_SHARED | mmap.MAP_POPULATE, fd, 0)
+    finally:
+        os.close(fd)
+    if address in (None, ctypes.c_void_p(-1).value):
+        raise OSError(ctypes.get_errno(), "mmap failed", path)
+    try:
+        nbytes = height * bmp.row_stride(width)
+        mapped = torch.frombuffer(
+            (ctypes.c_uint8 * size).from_address(address), dtype=torch.uint8)
+        buffer[:nbytes].copy_(mapped[offset: offset + nbytes])
+        del mapped
+    finally:
+        _LIBC.munmap(address, size)
+
+
+def split(args, device: torch.device, card: str, root: str) -> int:
+    """The --split mode (module docstring): one JSON line of ms a file and
+    GB/s a candidate and geometry."""
+    lib = native.load()
+    if lib is None:
+        raise RuntimeError("the native runtime does not load: --split "
+                           "times its reads")
+    line = {"metric": "split_read_ms_per_file",
+            "cpus": len(os.sched_getaffinity(0)),
+            "pool_threads": lib.jt_read_pool_threads(), "reps": args.reps,
+            "torch_threads": torch.get_num_threads(), "geometries": {}}
+    exact = True
+    for geometry in args.geometries.split(","):
+        width, height = map(int, geometry.split("x"))
+        src = os.path.join(root, geometry)
+        os.makedirs(src)
+        path = write_bmps(src, 1, height, width)[0]
+        buffer = pipeline.STAGING.take(device, width, height).buffer
+        ways = {"one_pread": lambda: bmp.read(path, out=buffer)}
+        for n in split_counts():
+            ways[f"pool_{n}"] = lambda n=n: bmp.read(path, out=buffer,
+                                                     ranges=n)
+            ways[f"threads_{n}"] = lambda n=n: threads_read(lib, path,
+                                                            buffer, n)
+        ways["mmap_copy"] = lambda: mmap_read(path, buffer)
+        ways["chosen"] = lambda: bmp.read(path, out=buffer,
+                                          ranges=bmp.file_ranges)
+        want = bmp.read(path, out=buffer).rows.clone().view(-1)
+        same = {}
+        for name, way in ways.items():  # warm the page cache and the pool
+            buffer.zero_()
+            way()
+            same[name] = torch.equal(buffer[: want.numel()], want)
+        times = {name: [] for name in ways}
+        names = list(ways)
+        order = random.Random(0)
+        for _ in range(args.reps):
+            # A new order each round: no candidate always follows another
+            # (torch's intra-op threads spin on after mmap_copy's copy_).
+            order.shuffle(names)
+            for name in names:
+                t = time.perf_counter()
+                ways[name]()
+                times[name].append(time.perf_counter() - t)
+        ms = {name: statistics.median(t) * 1e3 for name, t in times.items()}
+        line["geometries"][geometry] = {
+            "mb": want.numel() / 1e6, "pinned": bool(buffer.is_pinned()),
+            "chosen_ranges": bmp.file_ranges(width, height),
+            "ms": ms, "gb_per_s": {name: want.numel() / (t * 1e6)
+                                   for name, t in ms.items()},
+            "exact": same}
+        exact = exact and all(same.values())
+        timing.log(f"{geometry}: " + " ".join(
+            f"{name}={t:.4f}ms" for name, t in ms.items()))
+    line.update(exact=exact, clock="host", card=card)
+    timing.emit(line)
+    return 0 if exact else 1
 
 
 if __name__ == "__main__":

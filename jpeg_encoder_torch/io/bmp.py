@@ -8,11 +8,13 @@ buffer read + one vectorized numpy reshape — this is host code feeding the
 device, so it must not be the bottleneck.
 
 read(path, out=...) is the staged read of the single-file entry
-(pipeline.encode_file): it validates the header, reads the file's pixel
-rows as stored (bottom row first, BGR, each row padded to 4 bytes) straight
-into a caller's buffer with readinto, with no bytes object and no host
-decode, and returns them as Rows; rows_to_rgb does the strip, flip and
-swap on whatever device the rows were copied to.
+(pipeline.encode_file) and of the stream's loader: it validates the
+header, reads the file's pixel rows as stored (bottom row first, BGR, each
+row padded to 4 bytes) straight into a caller's buffer, with no bytes
+object and no host decode, and returns them as Rows; rows_to_rgb does the
+strip, flip and swap on whatever device the rows were copied to. With
+ranges > 1 the native runtime reads the rows as that many contiguous
+ranges at once, on its read pool (file_ranges is encode_file's count).
 
 The writer exists for fixtures, benchmarks, and round-trip tests (the
 reference ships no sample images).
@@ -28,7 +30,7 @@ import struct
 import numpy as np
 import torch
 
-from jpeg_encoder_torch import native
+from jpeg_encoder_torch import native, trace
 
 _DATA_OFFSET_POS = 10
 _WIDTH_POS = 18
@@ -43,8 +45,16 @@ _NATIVE_ERRORS = {
     -3: "unsupported BMP dimensions",
     -4: "BMP file truncated",
 }
-_NATIVE_CAPACITY = -5  # jt_bmp_read_rows: the buffer is too small
-_NATIVE_IO = -6        # jt_bmp_read_rows: a system call failed
+_NATIVE_IO = -6        # a system call failed (its errno is returned)
+_NATIVE_POOL = -7      # jt_read_ranges: the read pool could not start
+
+# encode_file's read of one file's rows (file_ranges), from
+# bench/host_io.py --split on the card machine (PERF.md §6): READ_RANGES
+# ranges where the rows hold SPLIT_MIN_BYTES or more; below that, one
+# pread (a 640x480 file, 0.92 MB, read slower split, a 1366x768 one,
+# 3.1 MB, faster).
+READ_RANGES = 8
+SPLIT_MIN_BYTES = 2 << 20
 
 
 def _u8ptr(arr: np.ndarray):
@@ -160,7 +170,16 @@ def rows_to_rgb(rows: torch.Tensor, width: int) -> torch.Tensor:
     return bgr.flip((-3, -1))
 
 
-def read(path: str | os.PathLike, out=None):
+def file_ranges(width: int, height: int) -> int:
+    """The ranges of encode_file's read of a width x height file:
+    READ_RANGES, at most one a CPU this process may use, where its rows
+    hold SPLIT_MIN_BYTES or more; else 1."""
+    if height * row_stride(width) < SPLIT_MIN_BYTES:
+        return 1
+    return max(1, min(READ_RANGES, len(os.sched_getaffinity(0))))
+
+
+def read(path: str | os.PathLike, out=None, *, ranges=1):
     """BMP file -> (H, W, 3) uint8 RGB (decode), or with `out` its stored
     pixel rows (Rows) read straight into `out`.
 
@@ -169,18 +188,26 @@ def read(path: str | os.PathLike, out=None):
     header is read (a buffer for the file's geometry). The header is
     validated as decode validates it, with the same ValueError texts; the
     pixel rows are read into out's first bytes, and Rows holds a view of
-    them. With the native runtime the read is native calls (open, header,
-    one pread, close) that hold the interpreter lock for none of their
-    I/O: the stream engine's decoder threads read this way beside its
-    emitting thread. Without it, Python reads the header and readintos
-    the rows.
+    them. With the native runtime the read is native calls (open and the
+    header, the rows, then close) that hold the interpreter lock for none
+    of their I/O: the stream engine's decoder threads read this way beside
+    its emitting thread. ranges is an int or, as out may be, a function
+    (width, height) -> one (file_ranges). The rows are one pread, or with
+    `ranges` > 1 as many contiguous preads as the rows span 4 KiB pages, up
+    to `ranges`, the first on the calling thread and the others on the
+    native read pool (threads started once a process, one a usable CPU; a
+    pool that cannot start raises RuntimeError). Without the native
+    runtime, Python reads the header and readintos the rows, one range
+    whatever `ranges` is. Under trace.recording() each read counts its
+    ranges ("read.ranges").
     """
     if out is None:
         with open(path, "rb") as f:
             return decode(f.read())
     lib = native.load()
     if lib is not None:
-        return _read_native(lib, path, out)
+        return _read_native(lib, path, out, ranges)
+    trace.count("read.ranges")
     return _read_python(path, out)
 
 
@@ -190,15 +217,11 @@ def _read_python(path, out) -> Rows:
     with open(path, "rb", buffering=0) as f:
         head = f.read(_HEADER_BYTES)
         width, height, data_offset = _header(head, os.fstat(f.fileno()).st_size)
-        buffer = out(width, height) if callable(out) else out
-        nbytes = height * row_stride(width)
-        if not _flat_bytes(buffer) or buffer.numel() < nbytes:
-            raise _not_a_buffer(path, buffer, nbytes)
-        rows = buffer[:nbytes]
+        rows = _buffer(path, out, width, height)
         view = memoryview(rows.numpy())
         f.seek(data_offset)
         got = 0
-        while got < nbytes:
+        while got < rows.numel():
             n = f.readinto(view[got:])
             if not n:
                 raise ValueError("BMP file truncated")
@@ -206,56 +229,64 @@ def _read_python(path, out) -> Rows:
     return Rows(rows.view(height, row_stride(width)), width, height)
 
 
-def _flat_bytes(out) -> bool:
-    """out is a contiguous 1-D uint8 CPU tensor (read's buffer)."""
-    return (isinstance(out, torch.Tensor) and out.dtype == torch.uint8
-            and out.device.type == "cpu" and out.dim() == 1
-            and out.is_contiguous())
+def _buffer(path, out, width: int, height: int) -> torch.Tensor:
+    """The first height * row_stride(width) bytes of read's out (called
+    with the geometry where it is a function), or read's ValueError."""
+    buffer = out(width, height) if callable(out) else out
+    nbytes = height * row_stride(width)
+    if not (isinstance(buffer, torch.Tensor) and buffer.dtype == torch.uint8
+            and buffer.device.type == "cpu" and buffer.dim() == 1
+            and buffer.is_contiguous() and buffer.numel() >= nbytes):
+        raise ValueError(
+            f"{path}: out must be a contiguous 1-D uint8 CPU tensor of at "
+            f"least {nbytes} bytes, got {buffer.dtype} "
+            f"{tuple(buffer.shape)} on {buffer.device}")
+    return buffer[:nbytes]
 
 
-def _not_a_buffer(path, buffer, nbytes: int) -> ValueError:
-    return ValueError(
-        f"{path}: out must be a contiguous 1-D uint8 CPU tensor of at "
-        f"least {nbytes} bytes, got {buffer.dtype} "
-        f"{tuple(buffer.shape)} on {buffer.device}")
-
-
-def _read_native(lib, path, out) -> Rows:
-    """read(path, out=out) through the native runtime, with read's
-    errors. A buffer function is called with the geometry that a first
-    call, given no buffer, reports; then the rows are read into its
-    buffer."""
-    if callable(out):
-        out = out(*_read_rows_native(lib, path, None))
-    width, height = _read_rows_native(lib, path, out)
-    stride = row_stride(width)
-    return Rows(out[: height * stride].view(height, stride), width, height)
-
-
-def _read_rows_native(lib, path, buffer) -> tuple[int, int]:
-    """One jt_bmp_read_rows call (open, the header checked as jt_bmp_probe
-    checks a file of its size, one pread, close) into buffer, or with
-    buffer None into nothing, to learn the geometry: (width, height).
-    Raises the header's ValueError texts, a short or unfit buffer's, and
-    an OSError of the failed call's errno."""
-    if buffer is not None and not _flat_bytes(buffer):
-        width, height = _read_rows_native(lib, path, None)
-        raise _not_a_buffer(path, buffer, height * row_stride(width))
-    w, h, errno = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
-    rc = lib.jt_bmp_read_rows(
-        os.fsencode(path),
-        None if buffer is None else _u8ptr(buffer.numpy()),
-        0 if buffer is None else buffer.numel(),
-        ctypes.byref(w), ctypes.byref(h), ctypes.byref(errno))
-    if rc == _NATIVE_CAPACITY and buffer is None:
-        return w.value, h.value
-    if rc == _NATIVE_CAPACITY:
-        raise _not_a_buffer(path, buffer, h.value * row_stride(w.value))
+def _native_error(rc: int, errno: int, path) -> Exception:
+    """The exception of a failed native read: the header's ValueError
+    texts, an OSError of the failed call's errno, the pool's
+    RuntimeError."""
     if rc == _NATIVE_IO:
-        raise OSError(errno.value, os.strerror(errno.value), os.fspath(path))
+        return OSError(errno, os.strerror(errno), os.fspath(path))
+    if rc == _NATIVE_POOL:
+        return RuntimeError(f"the native read pool could not start: "
+                            f"{os.strerror(errno)}")
+    return ValueError(_NATIVE_ERRORS.get(rc, f"BMP decode error {rc}"))
+
+
+def _read_native(lib, path, out, ranges) -> Rows:
+    """read(path, out=out, ranges=ranges) through the native runtime, with
+    read's errors: one open (jt_bmp_open_rows: the header checked as
+    jt_bmp_probe checks a file of its size), out sized from its geometry,
+    the rows (jt_read_ranges), close."""
+    fd, width, height = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    offset, errno = ctypes.c_int64(), ctypes.c_int32()
+    rc = lib.jt_bmp_open_rows(
+        os.fsencode(path), ctypes.byref(fd), ctypes.byref(width),
+        ctypes.byref(height), ctypes.byref(offset), ctypes.byref(errno))
     if rc != 0:
-        raise ValueError(_NATIVE_ERRORS.get(rc, f"BMP decode error {rc}"))
-    return w.value, h.value
+        raise _native_error(rc, errno.value, path)
+    used = ctypes.c_int32()
+    try:
+        rows = _buffer(path, out, width.value, height.value)
+        if callable(ranges):
+            ranges = ranges(width.value, height.value)
+        if ranges < 1:
+            raise ValueError(f"ranges must be at least 1, got {ranges}")
+        rc = lib.jt_read_ranges(
+            fd.value, ctypes.cast(rows.data_ptr(), ctypes.POINTER(
+                ctypes.c_uint8)),
+            rows.numel(), offset.value, ranges, ctypes.byref(used),
+            ctypes.byref(errno))
+    finally:
+        os.close(fd.value)
+    if rc != 0:
+        raise _native_error(rc, errno.value, path)
+    trace.count("read.ranges", used.value)
+    stride = row_stride(width.value)
+    return Rows(rows.view(height.value, stride), width.value, height.value)
 
 
 def read_batch(

@@ -74,9 +74,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.jt_bmp_encode_rgb.argtypes = [
         u8p, ctypes.c_int32, ctypes.c_int32, u8p, ctypes.c_int64
     ]
-    lib.jt_bmp_read_rows.restype = ctypes.c_int
-    lib.jt_bmp_read_rows.argtypes = [ctypes.c_char_p, u8p, ctypes.c_int64,
-                                     i32p, i32p, i32p]
+    lib.jt_bmp_open_rows.restype = ctypes.c_int
+    lib.jt_bmp_open_rows.argtypes = [ctypes.c_char_p, i32p, i32p, i32p, i64p,
+                                     i32p]
+    for read in (lib.jt_read_ranges, lib.jt_read_ranges_threads):
+        read.restype = ctypes.c_int
+        read.argtypes = [ctypes.c_int32, u8p, ctypes.c_int64, ctypes.c_int64,
+                         ctypes.c_int32, i32p, i32p]
+    lib.jt_read_pool_threads.restype = ctypes.c_int32
+    lib.jt_read_pool_threads.argtypes = []
     lib.jt_bmp_decode_batch.restype = ctypes.c_int
     lib.jt_bmp_decode_batch.argtypes = [
         u8pp, i64p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,

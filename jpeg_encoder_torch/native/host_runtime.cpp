@@ -13,13 +13,18 @@
 // Error codes: 0 = ok, negative = validation failure (see JT_ERR_*).
 
 #include <fcntl.h>
+#include <sched.h>
 #include <sys/stat.h>
 #include <unistd.h>
 
 #include <atomic>
 #include <cerrno>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
+#include <deque>
+#include <mutex>
+#include <system_error>
 #include <thread>
 #include <vector>
 
@@ -29,6 +34,7 @@
 #define JT_ERR_TRUNCATED -4  // pixel data shorter than header promises
 #define JT_ERR_CAPACITY -5   // output buffer too small
 #define JT_ERR_IO -6         // a system call failed (its errno is returned)
+#define JT_ERR_POOL -7       // the read pool's threads could not start
 
 namespace {
 
@@ -133,6 +139,8 @@ int jt_bmp_encode_rgb(const uint8_t* rgb, int32_t width, int32_t height,
   return 0;
 }
 
+}  // extern "C"
+
 namespace {
 
 // pread until n bytes or the end of the file: the bytes read, or -1.
@@ -151,51 +159,297 @@ int64_t pread_full(int fd, uint8_t* out, int64_t n, int64_t offset) {
   return got;
 }
 
+constexpr int64_t kFilePage = 4096;
+constexpr int32_t kMaxRanges = 64;
+
+// One range of a split read: n bytes of the file at offset into out.
+struct Range {
+  uint8_t* out;
+  int64_t n;
+  int64_t offset;
+};
+
+// The outcome of one split read: the ranges still being read, and the
+// error to report: JT_ERR_IO (with the errno of the failed pread at the
+// lowest offset) before JT_ERR_TRUNCATED (a range came up short).
+struct Outcome {
+  std::mutex mu;
+  std::condition_variable done;
+  int pending = 0;
+  int rc = 0;
+  int error = 0;
+  int64_t at = INT64_MAX;
+
+  void add(int range_rc, int range_error, int64_t offset) {
+    std::lock_guard<std::mutex> hold(mu);
+    const bool worse = range_rc == JT_ERR_IO && rc != JT_ERR_IO;
+    const bool same_earlier = range_rc == rc && offset < at;
+    if (range_rc != 0 && (rc == 0 || worse || same_earlier)) {
+      rc = range_rc;
+      error = range_error;
+      at = offset;
+    }
+  }
+
+  void finish(int range_rc, int range_error, int64_t offset) {
+    add(range_rc, range_error, offset);
+    std::lock_guard<std::mutex> hold(mu);
+    if (--pending == 0) done.notify_all();
+  }
+
+  void wait() {
+    std::unique_lock<std::mutex> hold(mu);
+    done.wait(hold, [this] { return pending == 0; });
+  }
+};
+
+void read_range(int fd, const Range& r, Outcome* outcome, bool pooled) {
+  const int64_t got = pread_full(fd, r.out, r.n, r.offset);
+  const int rc = got < 0 ? JT_ERR_IO : got < r.n ? JT_ERR_TRUNCATED : 0;
+  const int error = got < 0 ? errno : 0;
+  if (pooled)
+    outcome->finish(rc, error, r.offset);
+  else
+    outcome->add(rc, error, r.offset);
+}
+
+// The rows at file offset [offset, offset + nbytes) cut into at most
+// `ranges` contiguous ranges whose inner ends lie on 4 KiB file pages (a
+// range never shares a page of the page cache with the next); fewer
+// where the block spans fewer pages.
+int split_ranges(uint8_t* out, int64_t nbytes, int64_t offset,
+                 int32_t ranges, Range* cut) {
+  if (ranges > kMaxRanges) ranges = kMaxRanges;
+  const int64_t end = offset + nbytes;
+  int n = 0;
+  int64_t lo = offset;
+  for (int32_t i = 1; i <= ranges; ++i) {
+    int64_t hi = end;
+    if (i < ranges) hi = (offset + nbytes * i / ranges) / kFilePage * kFilePage;
+    if (hi <= lo || (i < ranges && hi >= end)) continue;
+    cut[n++] = Range{out + (lo - offset), hi - lo, lo};
+    lo = hi;
+  }
+  return n;
+}
+
+// The read pool: threads started once a process (one for each CPU the
+// process may use) that read ranges handed to them by any number of
+// calling threads. Never destroyed, so its threads live as long as the
+// process; a forked child starts a pool of its own.
+class ReadPool {
+ public:
+  struct Job {
+    int fd;
+    Range range;
+    Outcome* outcome;
+  };
+
+  // The threads started, or -errno where the first could not start
+  // (those that did are stopped again).
+  int start(int count) {
+    try {
+      for (int t = 0; t < count; ++t) threads_.emplace_back([this] { run(); });
+    } catch (const std::system_error& e) {
+      {
+        std::lock_guard<std::mutex> hold(mu_);
+        stop_ = true;
+      }
+      ready_.notify_all();
+      for (auto& t : threads_) t.join();
+      threads_.clear();
+      return -(e.code().value() > 0 ? e.code().value() : EAGAIN);
+    }
+    return count;
+  }
+
+  void submit(const Job* jobs, int n) {
+    {
+      std::lock_guard<std::mutex> hold(mu_);
+      for (int i = 0; i < n; ++i) queue_.push_back(jobs[i]);
+    }
+    if (n == 1)
+      ready_.notify_one();
+    else
+      ready_.notify_all();
+  }
+
+  int threads() const { return static_cast<int>(threads_.size()); }
+
+ private:
+  void run() {
+    for (;;) {
+      Job job;
+      {
+        std::unique_lock<std::mutex> hold(mu_);
+        ready_.wait(hold, [this] { return stop_ || !queue_.empty(); });
+        if (stop_) return;
+        job = queue_.front();
+        queue_.pop_front();
+      }
+      read_range(job.fd, job.range, job.outcome, true);
+    }
+  }
+
+  std::mutex mu_;
+  std::condition_variable ready_;
+  std::deque<Job> queue_;
+  std::vector<std::thread> threads_;
+  bool stop_ = false;
+};
+
+std::mutex g_pool_mu;
+ReadPool* g_pool = nullptr;
+pid_t g_pool_pid = 0;
+
+int usable_cpus() {
+  cpu_set_t set;
+  if (sched_getaffinity(0, sizeof(set), &set) == 0) {
+    const int n = CPU_COUNT(&set);
+    if (n > 0) return n;
+  }
+  const int n = static_cast<int>(std::thread::hardware_concurrency());
+  return n > 0 ? n : 1;
+}
+
+// The process's pool, started on first use; nullptr with *error set
+// where its threads could not start.
+ReadPool* read_pool(int32_t* error) {
+  std::lock_guard<std::mutex> hold(g_pool_mu);
+  if (g_pool != nullptr && g_pool_pid == getpid()) return g_pool;
+  auto* pool = new ReadPool();
+  const int started = pool->start(usable_cpus());
+  if (started < 0) {
+    delete pool;
+    *error = -started;
+    return nullptr;
+  }
+  g_pool = pool;
+  g_pool_pid = getpid();
+  return pool;
+}
+
+// A split read: range 0 on the calling thread, the others handed to
+// `others` (which must have each call outcome->finish once), then a wait
+// for all of them.
+template <class Others>
+int read_split(int32_t fd, uint8_t* out, int64_t nbytes, int64_t offset,
+               int32_t ranges, int32_t* used, int32_t* error,
+               Others others) {
+  *error = 0;
+  *used = 0;
+  if (nbytes <= 0) return 0;
+  Range cut[kMaxRanges];
+  const int n = split_ranges(out, nbytes, offset, ranges < 1 ? 1 : ranges,
+                             cut);
+  Outcome outcome;
+  outcome.pending = n - 1;
+  if (n > 1) {
+    const int rc = others(cut + 1, n - 1, &outcome);
+    if (rc != 0) {
+      *error = rc;
+      return JT_ERR_POOL;
+    }
+  }
+  read_range(fd, cut[0], &outcome, false);
+  if (n > 1) outcome.wait();
+  *used = n;
+  *error = outcome.error;
+  return outcome.rc;
+}
+
 }  // namespace
 
-// A BMP file's pixel rows as stored (height * row_stride(width) bytes,
-// bottom row first, BGR, padded) read straight into out: open, the header
-// validated as jt_bmp_probe validates a whole file of the file's size,
-// one pread of the rows, close. width and height are set once the header
-// is valid, also when out's capacity is short (JT_ERR_CAPACITY, nothing
-// read). On JT_ERR_IO, *error is the failed call's errno. No interpreter
-// runs here, so a ctypes caller holds its lock for none of the I/O.
-int jt_bmp_read_rows(const char* path, uint8_t* out, int64_t capacity,
-                     int32_t* width, int32_t* height, int32_t* error) {
+extern "C" {
+
+// A BMP file opened for a read of its pixel rows: the header validated
+// as jt_bmp_probe validates a whole file of the file's size, then *fd
+// (open; the caller closes it), the geometry and the rows' file offset.
+// On an error nothing stays open; on JT_ERR_IO, *error is the failed
+// call's errno. No interpreter runs here, so a ctypes caller holds its
+// lock for none of the I/O.
+int jt_bmp_open_rows(const char* path, int32_t* fd, int32_t* width,
+                     int32_t* height, int64_t* offset, int32_t* error) {
   *error = 0;
-  const int fd = open(path, O_RDONLY | O_CLOEXEC);
-  if (fd < 0) {
+  *fd = open(path, O_RDONLY | O_CLOEXEC);
+  if (*fd < 0) {
     *error = errno;
     return JT_ERR_IO;
   }
   struct stat st;
   uint8_t head[kHeaderSize] = {0};
   int rc = 0;
-  if (fstat(fd, &st) != 0 || pread_full(fd, head, kHeaderSize, 0) < 0) {
+  if (fstat(*fd, &st) != 0 || pread_full(*fd, head, kHeaderSize, 0) < 0) {
     *error = errno;
     rc = JT_ERR_IO;
   }
   int32_t bpp = 0;
-  int64_t offset = 0;
   if (rc == 0)
     rc = jt_bmp_probe(head, static_cast<int64_t>(st.st_size), width, height,
-                      &offset, &bpp);
-  if (rc == 0) {
-    const int64_t nbytes = row_stride(*width) * *height;
-    if (nbytes > capacity) {
-      rc = JT_ERR_CAPACITY;
-    } else {
-      const int64_t got = pread_full(fd, out, nbytes, offset);
-      if (got < 0) {
-        *error = errno;
-        rc = JT_ERR_IO;
-      } else if (got < nbytes) {
-        rc = JT_ERR_TRUNCATED;
-      }
-    }
+                      offset, &bpp);
+  if (rc != 0) {
+    close(*fd);
+    *fd = -1;
   }
-  close(fd);
   return rc;
+}
+
+// nbytes of fd at offset into out, as min(ranges, the pages it spans)
+// contiguous reads whose inner ends lie on 4 KiB file pages: the first on
+// the calling thread, the others on the process's read pool (started on
+// the first call that splits). *used is the ranges read. Returns 0,
+// JT_ERR_TRUNCATED where any range came up short, JT_ERR_IO with *error
+// the failed pread's errno, or JT_ERR_POOL with *error the errno of the
+// pool's threads that could not start (nothing read).
+int jt_read_ranges(int32_t fd, uint8_t* out, int64_t nbytes, int64_t offset,
+                   int32_t ranges, int32_t* used, int32_t* error) {
+  return read_split(
+      fd, out, nbytes, offset, ranges, used, error,
+      [fd](const Range* rest, int n, Outcome* outcome) {
+        int32_t start_error = 0;
+        ReadPool* pool = read_pool(&start_error);
+        if (pool == nullptr) return static_cast<int>(start_error);
+        ReadPool::Job jobs[kMaxRanges];
+        for (int i = 0; i < n; ++i) jobs[i] = {fd, rest[i], outcome};
+        pool->submit(jobs, n);
+        return 0;
+      });
+}
+
+// jt_read_ranges with a thread started for each range but the first and
+// joined before it returns, as jt_copy_threads does: the start-up cost
+// that the pool avoids, timed by bench/host_io.py --split.
+int jt_read_ranges_threads(int32_t fd, uint8_t* out, int64_t nbytes,
+                           int64_t offset, int32_t ranges, int32_t* used,
+                           int32_t* error) {
+  std::vector<std::thread> started;
+  const int rc = read_split(
+      fd, out, nbytes, offset, ranges, used, error,
+      [fd, &started](const Range* rest, int n, Outcome* outcome) {
+        try {
+          for (int i = 0; i < n; ++i)
+            started.emplace_back(
+                [fd, r = rest[i], outcome] { read_range(fd, r, outcome, true); });
+        } catch (const std::system_error& e) {
+          // Those started still finish; count the rest as done.
+          for (int i = static_cast<int>(started.size()); i < n; ++i)
+            outcome->finish(0, 0, 0);
+          for (auto& t : started) t.join();
+          started.clear();
+          return e.code().value() > 0 ? e.code().value() : EAGAIN;
+        }
+        return 0;
+      });
+  for (auto& t : started) t.join();
+  return rc;
+}
+
+// The threads of the process's read pool, starting it if it has not
+// started: > 0, or -errno where they could not start.
+int32_t jt_read_pool_threads() {
+  int32_t error = 0;
+  ReadPool* pool = read_pool(&error);
+  return pool == nullptr ? -error : pool->threads();
 }
 
 // Threaded batch ingest (the "data loader"): decode n same-sized BMP

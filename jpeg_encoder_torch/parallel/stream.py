@@ -188,10 +188,11 @@ def _work(paths: list[str], config: EncoderConfig):
 
 def _read_rows(path: str, out: torch.Tensor, dims: tuple[int, int]) -> None:
     """One file's stored rows into out (an image of a ring slot, or of an
-    ordinary tensor on the CPU: one native call, bmp.read); a file whose
-    header no longer gives its group's dimensions raises."""
+    ordinary tensor on the CPU), one pread (bmp.read, one range: the
+    decoder pool already reads a file a thread); a file whose header no
+    longer gives its group's dimensions raises."""
     with trace.span("stream.read"):
-        rows = bmp.read(path, out=out)
+        rows = bmp.read(path, out=out, ranges=1)
     if (rows.width, rows.height) != dims:
         raise ValueError(f"{path}: {rows.width}x{rows.height}, its group is "
                          f"{dims[0]}x{dims[1]}")

@@ -12,10 +12,11 @@ The host builds optimal tables, stuffs 0xFF bytes and writes the JFIF
 container (the port's tables.py and io/).
 
 encode_file does not decode the BMP on the host: it reads the file's pixel
-rows as stored (io/bmp.read(path, out=...)) into a host buffer of its
-thread's (Staging: pinned on a card, one a device and geometry, a few a
-thread), uploads them as they are, and the program's first op strips,
-flips and swaps them (bmp.rows_to_rgb). encode_array takes either form,
+rows as stored (io/bmp.read(path, out=..., ranges=...), several ranges at
+once on the native read pool) into a host buffer of its thread's
+(Staging: pinned on a card, one a device and geometry, a few a thread),
+uploads them as they are, and the program's first op strips, flips and
+swaps them (bmp.rows_to_rgb). encode_array takes either form,
 an RGB array or bmp.Rows; the form is part of the program's key. The
 in-memory entries (encode_array of an array, parallel/batch's chunks,
 parallel/tiled's band rows) go up through upload: on a card the calling
@@ -853,9 +854,11 @@ def encode_file(
     """BMP file -> JFIF file, encoded on `device` (the card by default).
 
     The file's pixel rows go from the page cache into the calling thread's
-    staging buffer for the device and geometry (STAGING; pinned on a card)
-    and from there to the card as they are stored; the program reorders
-    them (encode_array of bmp.Rows). Its steps are spans (trace.py):
+    staging buffer for the device and geometry (STAGING; pinned on a card),
+    read as bmp.file_ranges(width, height) ranges at once on the native
+    read pool, and
+    from there to the card as they are stored; the program reorders them
+    (encode_array of bmp.Rows). Its steps are spans (trace.py):
     encode_file.read (staging.wait beneath it), encode_array and
     encode_file.write."""
     check_config(config)
@@ -868,7 +871,7 @@ def encode_file(
 
     try:
         with trace.span("encode_file.read"):
-            rows = bmp.read(bmp_path, out=buffer)
+            rows = bmp.read(bmp_path, out=buffer, ranges=bmp.file_ranges)
         result = encode_array(rows, config, device=device)
     finally:
         for staging in taken:

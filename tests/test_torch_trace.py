@@ -198,7 +198,8 @@ def test_encode_file_spans(tmp_path):
     assert all(s.thread == threading.current_thread().name for s in spans)
     assert next(s for s in spans if s.name == "encode_array.launch"
                 ).attrs == {"graph": "eager"}
-    assert recorder.counters == {"graphs.eager": 2}
+    # Each small file's rows lie in one 4 KiB page: one range a read.
+    assert recorder.counters == {"graphs.eager": 2, "read.ranges": 2}
 
 
 def test_encode_array_spans_and_graph_counters(graphed_cpu):
@@ -325,7 +326,8 @@ def test_stream_spans_on_every_thread(tmp_path, monkeypatch):
     assert all(isinstance(s.attrs["reads_in_flight"], int)
                for s in named["stream.emit"])
     assert emitted == paths
-    assert recorder.counters == {"graphs.eager": 3}
+    # The loader reads one range a file.
+    assert recorder.counters == {"graphs.eager": 3, "read.ranges": 6}
 
 
 def test_in_flight_counts_open_spans_across_threads():

@@ -3,8 +3,10 @@
     python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from jpeg_encoder_torch/csrc (one nvcc per
-source, all at once), holds each against its plain PyTorch version (K1
-RealDCT, K4 entropy, K3 binDCT, K5 bitstream assembly and the per-block
+source, all at once), holds each against its plain PyTorch version (F1
+the front, an RGB array or a BMP file's stored rows to the padded planes,
+at every ratio, full size and quirk geometries, batches and live rows,
+and all 2^24 RGB triples against the oracle; K1 RealDCT, K4 entropy, K3 binDCT, K5 bitstream assembly and the per-block
 tier K6a/b and K6c exactly, K4 also over restart intervals with
 live_entries, over a batch of images with per-image rows, intervals and
 tables, and over one image's MCU bands with one init_dc vector a row, K6
@@ -43,9 +45,10 @@ emitting thread, none of the run's own programs evicted, 8 also under
 restart and optimize, and, with an emitter that sleeps through the first
 two chunks, under default and optimize against the eager card path; the
 Mpixel/s of a pass beside the loader's, assembler's and emitter's busy
-seconds; under the profiler every
-host-to-device copy must be pinned and one at least must overlap a
-kernel), the band path
+seconds; under the profiler, in replayed runs, every host-to-device
+copy must be pinned and on a stream no kernel ran on, and, with the
+card kept busy by matmuls on a stream of their own, one at least must
+overlap a kernel of the run), the band path
 (jpeg_encoder_torch.parallel.tiled.encode_tiled: 1080p at 2, 3, 4 and 8
 bands, 4K at 4 and 8, 7680x4320 at 8, every ratio, binDCT, --fast-dct,
 restart 120 and 7, optimize, a one-band retry, the quirk fallback; every
@@ -62,8 +65,10 @@ every option, stream.encode_paths on 64 1080p BMP files, encode_tiled at
 on a glob with --devices 1, and two gloo processes encoding the bands of
 one 4K image with multihost.encode_tiled, unbroken, restart and optimize;
 every file against the one-card file on the card), each
-path between a reset and a read of the launch counts, and times the
-kernels (beside their bounds), the batch against a loop of single
+path between a reset and a read of the launch counts (each path's F1
+launches equal to its plane-DCT launches: every front is the kernel), and
+times the kernels (beside their bounds; F1 also from stored rows, at 4K
+and on 8 x 1080p, beside the plain front), the batch against a loop of single
 encodes, and the end-to-end encodes, encode_tiled against encode_array
 (host ms with each stage alone, device-busy ms and the top device
 operations), K4 with one init_dc a row against the (3,) form, and each
@@ -154,7 +159,7 @@ import numpy as np
 import torch
 
 from jpeg_encoder_torch.bench import timing
-from jpeg_encoder_torch.bench.kernels import front_planes, kernel_bounds
+from jpeg_encoder_torch.bench.kernels import kernel_bounds
 from jpeg_encoder_torch.bench.timing import variants
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -376,13 +381,131 @@ def k2_phase(cuda, rng) -> float:
     return float(worst)
 
 
+def stored_rows(images: np.ndarray) -> torch.Tensor:
+    """(B, H, W, 3) RGB -> the (B, H, stride) rows BMP files of them store
+    (bottom row first, BGR, each row zero-padded to 4 bytes), on the CPU."""
+    from jpeg_encoder_torch.io import bmp
+
+    count, height, width, _ = images.shape
+    rows = np.zeros((count, height, bmp.row_stride(width)), np.uint8)
+    rows[..., : 3 * width] = images[:, ::-1, :, ::-1].reshape(
+        count, height, 3 * width)
+    return torch.from_numpy(rows)
+
+
+def front_phase(cuda, images_1080, images_4k, card) -> float:
+    """F1 (kernels/front.py) against its plain version (ops/front.planes)
+    on the same card inputs, exactly, every plane contiguous and 8-byte
+    aligned: 4:4:4, 4:2:2 and 4:2:0, each for an RGB array and for stored
+    BMP rows, on the 1080p corpus as one batch of 8 and 8 stacked with
+    live_rows (0, mid-image, near the end), the 4K corpus frames one by
+    one, 1921x1089 in a batch of 2, the quirk geometries 17x17, 33x17 and
+    49x33 in a batch of 3, and widths 1-20 (every row padding) in batches
+    of 3; all 2^24 RGB triples through F1 against the oracle
+    (bench/parity.py --color's sweep); one device operation a call; then
+    F1's graph ms (bench/timing.graph_ms) beside its bound and the plain
+    version's, at 1080p and 4K, from either form, and 8 x 1080p rows.
+    Returns the largest |F1 - plain|."""
+    from jpeg_encoder_torch.bench import kernels as bench_kernels
+    from jpeg_encoder_torch.bench import parity
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.io import bmp
+    from jpeg_encoder_torch.kernels import front as front_kernel
+    from jpeg_encoder_torch.ops import front as front_ops
+
+    worst, cases = 0, 0
+    t0 = time.perf_counter()
+
+    def inputs(images):
+        """(form, the F1 input on the card) for the RGB and the rows."""
+        height, width = images.shape[1:3]
+        rgb = torch.from_numpy(np.ascontiguousarray(images)).to(cuda)
+        rows = bmp.Rows(stored_rows(images).to(cuda), width, height)
+        return (("rgb", rgb), ("rows", rows))
+
+    def case(label, images, live=(None,)):
+        nonlocal worst, cases
+        height, width = images.shape[1:3]
+        for ratio in RATIOS:
+            geom = EncoderConfig(subsampling_ratio=ratio).geometry(width,
+                                                                   height)
+            for form, image in inputs(images):
+                for live_rows in live:
+                    got = front_kernel.planes(image, geom, live_rows)
+                    want = front_ops.planes(image, geom, live_rows)
+                    for g, w in zip(got, want):
+                        check(g.shape == w.shape and g.is_contiguous()
+                              and g.data_ptr() % 8 == 0,
+                              f"front {label} {ratio} {form}: plane "
+                              f"{tuple(g.shape)} vs {tuple(w.shape)}")
+                        if g.numel():
+                            worst = max(worst, max_err(g, w.cpu()))
+                    cases += 1
+        check(worst == 0, f"front {label}: F1 != plain, max |err| {worst}")
+
+    hd = np.stack(variants(list(images_1080.values()), 8))
+    case(f"1080p corpus x {len(hd)}", hd,
+         (None, 0, 3 * 1080 + 77, 8 * 1080 - 5))
+    for name, rgb in images_4k.items():
+        case(f"4K {name}", rgb[None])
+    rng = np.random.default_rng(21)
+    case("1921x1089 x 2", rng.integers(0, 256, (2, 1089, 1921, 3),
+                                       dtype=np.uint8))
+    for width, height in ((17, 17), (33, 17), (49, 33)):
+        case(f"{width}x{height} x 3", rng.integers(
+            0, 256, (3, height, width, 3), dtype=np.uint8), (None, 20))
+    for width in range(1, 21):
+        height = 3 + width % 5
+        case(f"{width}x{height} x 3", rng.integers(
+            0, 256, (3, height, width, 3), dtype=np.uint8))
+    grid = parity.color_grid(1)
+    bad = parity.color_mismatches(grid, cuda)
+    check(bad == 0, f"front: {bad} of 2^24 RGB triples' channel values "
+          "differ from the oracle's")
+    print(f"front: F1 == plain (max |err| {worst}) in {cases} cases, "
+          f"3 ratios x RGB and stored rows x live rows; all "
+          f"{grid.shape[0] * grid.shape[1]} RGB triples == the oracle's; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    geom = EncoderConfig().geometry(hd.shape[2], hd.shape[1])
+    image = inputs(hd[:1])[1][1]
+    for _ in range(3):  # an empty trace is retried, as in busy_ms
+        ops = device_ops(lambda: front_kernel.planes(image, geom))
+        count = sum(c for _, c, _ in ops)
+        if count:
+            break
+    check(count == 1, f"one F1 call ran other than one kernel: {ops}")
+    print(f"F1 device operations per call, 1920x1080 4:2:0 rows: {count} "
+          f"({'; '.join(f'{n[:50]} x{c}' for n, c, _ in ops)}) ({card})",
+          flush=True)
+    for label, images in (("1920x1080", hd[:1]),
+                          ("3840x2160", next(iter(images_4k.values()))[None]),
+                          (f"{len(hd)} x 1920x1080", hd)):
+        geom = EncoderConfig().geometry(images.shape[2], images.shape[1])
+        for form, image in inputs(images):
+            if len(images) > 1 and form == "rgb":
+                continue
+            kernel = timing.graph_ms(
+                lambda: front_kernel.planes(image, geom), cuda)
+            plain = timing.graph_ms(
+                lambda: front_ops.planes(image, geom), cuda)
+            bound_ms, by = bench_kernels.front_bound(geom, len(images),
+                                                     form == "rows")
+            print(f"time front {label} 4:2:0 from {form}: F1 graph "
+                  f"{kernel:.4f} ms, plain graph {plain:.4f} ms, bound "
+                  f"{bound_ms:.5f} ms ({by}; F1 {kernel / bound_ms:.1f}x) "
+                  f"({card})", flush=True)
+    return float(worst)
+
+
 def card_entries(cuda, rgb: np.ndarray, geom) -> torch.Tensor:
     """(E, 64) scan entries of rgb, from K1 on the card, on the CPU."""
     from jpeg_encoder_torch.kernels import dct as dct_kernel
+    from jpeg_encoder_torch.kernels import front as front_kernel
     from jpeg_encoder_torch.ops import entropy as entropy_ops
 
     coeffs = dct_kernel.real_dct_quant_planes_zigzag(
-        *front_planes(torch.from_numpy(rgb).to(cuda), geom)
+        *front_kernel.planes(torch.from_numpy(rgb).to(cuda), geom)
     )
     return entropy_ops.marshal_scan_inputs(*coeffs, geom).cpu()
 
@@ -870,20 +993,22 @@ def quartiles(values: list[float]) -> str:
 def staged_read_phase(cuda, card, tmp) -> dict[str, int]:
     """encode_file's staged read on the card (bmp.read(path, out=) into
     the thread's pipeline.STAGING buffer, the rows uploaded as stored and
-    reordered at the head of the program): the benchmark's 8 corpus
+    read as stored by the program's front kernel, F1): the benchmark's 8 corpus
     contents (benchmark/contents.py, seed 0) at each of STAGED_GEOMETRIES,
     twice (each key's eager call, its capture, replays); every file equal
     to the eager RGB path's (encode_array of the decoded array under
     graphs.disabled()); the thread's buffers pinned. Then prints the
-    upload's GB/s from the pinned buffer and the reorder's device ms (CUDA
-    events), and a request's ms against the decoded path's (bmp.read,
+    upload's GB/s from the pinned buffer and F1's device ms on the stored
+    rows (CUDA events), and a request's ms against the decoded path's (bmp.read,
     encode_array of the array, the write), in alternated rounds. The read
     is split (split_read_checks): the native runtime loaded, each
     encode_file read bmp.file_ranges(width, height) > 1 ranges, the rows
     equal one pread's."""
     from benchmark import contents
     from jpeg_encoder_torch import graphs, native, pipeline
+    from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch.io import bmp
+    from jpeg_encoder_torch.kernels import front as front_kernel
 
     check(native.load() is not None,
           "staged read: the native runtime does not load, so encode_file "
@@ -906,21 +1031,23 @@ def staged_read_phase(cuda, card, tmp) -> dict[str, int]:
                     check(f.read() == file_bytes,
                           f"staged read {src}: file != the eager RGB path's")
 
-    counts = counted("staged read", drive, ("realdct", "entropy"))
+    counts = counted("staged read", drive, MAIN_KERNELS)
     for height, width in STAGED_GEOMETRIES:
         buffer = pipeline.STAGING.take(cuda, width, height).buffer
         check(buffer.is_pinned(),
               f"staged read {width}x{height}: the staging buffer is pageable")
         rows = torch.empty(buffer.numel(), dtype=torch.uint8, device=cuda)
         upload_ms = cuda_ms(lambda: rows.copy_(buffer, non_blocking=True))
-        stored = rows.view(height, bmp.row_stride(width))
-        reorder_ms = cuda_ms(lambda: bmp.rows_to_rgb(stored, width))
+        stored = bmp.Rows(rows.view(height, bmp.row_stride(width)), width,
+                          height)
+        geom = EncoderConfig().geometry(width, height)
+        front_ms = cuda_ms(lambda: front_kernel.planes(stored, geom))
         print(f"staged read {width}x{height}: "
               f"{len(want) // len(STAGED_GEOMETRIES)} files x 2, "
               f"every file == the eager RGB path's; pinned buffer of "
               f"{buffer.numel()} B; upload {upload_ms:.4f} ms "
-              f"({buffer.numel() / upload_ms / 1e6:.2f} GB/s); reorder "
-              f"{reorder_ms:.4f} ms ({card})", flush=True)
+              f"({buffer.numel() / upload_ms / 1e6:.2f} GB/s); F1 from the "
+              f"stored rows {front_ms:.4f} ms ({card})", flush=True)
 
     def decoded(src, dst):
         result = pipeline.encode_array(bmp.read(src), device=cuda)
@@ -1302,7 +1429,7 @@ def large_image_path(cuda) -> dict[str, int]:
     results = []
     counts = counted("large image", lambda: results.append(
         pipeline.encode_array(rgb, config, device=cuda)),
-        ("realdct", "entropy"))
+        MAIN_KERNELS)
     t0 = time.perf_counter()
     want = pipeline.encode_array(rgb, config, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -1368,11 +1495,12 @@ def block_tier_path(cuda, images_1080) -> dict[str, int]:
     plane's own table; then each result held against K1 and K3 on the
     same planes. Returns the tier's launch counts."""
     from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.kernels import front as front_kernel
     from jpeg_encoder_torch.ops import sample
 
     height, width = next(iter(images_1080.values())).shape[:2]
     geom = EncoderConfig().geometry(width, height)
-    planes = [front_planes(torch.from_numpy(rgb).to(cuda), geom)
+    planes = [front_kernel.planes(torch.from_numpy(rgb).to(cuda), geom)
               for rgb in images_1080.values()]
     jobs = [(i, p, name, quality) for i, three in enumerate(planes)
             for p in range(3) for name, _, _ in block_pairs()
@@ -1847,23 +1975,76 @@ def h2d_rates(cuda, shape) -> tuple[float, float]:
     return (host.numel() / pinned_ms / 1e6, host.numel() / pageable_ms / 1e6)
 
 
-def trace_overlap(trace_path: str) -> tuple[list[str], int, int, float]:
-    """From a torch.profiler chrome trace: (the names of the host-to-device
-    copies, how many copies overlap a kernel in time, how many kernels ran,
-    the overlapped microseconds)."""
+# A background load's kernels (card_load's cuBLAS matmuls) carry this in
+# their names; no kernel of the port does.
+LOAD_KERNEL = "gemm"
+
+
+def trace_overlap(trace_path: str, load: str = LOAD_KERNEL) -> dict:
+    """From a torch.profiler chrome trace: the names of the host-to-device
+    copies ("copies"), how many of them overlap a kernel in time
+    ("overlapping", "overlap_us"), how many kernels ran ("kernels"), the
+    streams the copies and the kernels ran on ("copy_streams",
+    "kernel_streams"). Kernels whose names hold `load` (card_load's) are
+    counted apart ("load_kernels") and left out of the rest."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
     copies = [e for e in events if e.get("cat") == "gpu_memcpy"
               and "HtoD" in e.get("name", "")]
-    kernels = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                     if e.get("cat") == "kernel")
+    every = [e for e in events if e.get("cat") == "kernel"]
+    path = [e for e in every if load not in e.get("name", "").lower()]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in path)
     overlapping, overlap_us = 0, 0.0
     for c in copies:
         a, b = c["ts"], c["ts"] + c["dur"]
-        shared = sum(max(0.0, min(b, k1) - max(a, k0)) for k0, k1 in kernels)
+        shared = sum(max(0.0, min(b, k1) - max(a, k0)) for k0, k1 in spans)
         overlapping += shared > 0
         overlap_us += shared
-    return [c["name"] for c in copies], overlapping, len(kernels), overlap_us
+    return {"copies": [c["name"] for c in copies],
+            "overlapping": overlapping, "overlap_us": overlap_us,
+            "kernels": len(path), "load_kernels": len(every) - len(path),
+            "copy_streams": {c.get("args", {}).get("stream") for c in copies},
+            "kernel_streams": {e.get("args", {}).get("stream")
+                               for e in path}}
+
+
+@contextlib.contextmanager
+def card_load(cuda, seconds: float = 60.0):
+    """Keep the card's SMs busy while the block runs: a thread of its own
+    runs 4096 x 4096 fp32 matmuls (cuBLAS, kernels named *gemm*, ~2 ms
+    each) on a stream of its own, two in flight, until the block ends or
+    `seconds` pass. A folder's chunk then takes longer on the card than
+    the loader takes to read the next chunk's first file, as on a card
+    that other work shares, so that the next chunk's copies start while
+    its kernels run."""
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        a = torch.randn(4096, 4096, device=cuda)
+        b = torch.mm(a, a)  # cuBLAS's set-up, before the block
+    side.synchronize()
+    stop = threading.Event()
+
+    def run():
+        end = time.monotonic() + seconds
+        pending = [None, None]
+        with torch.cuda.device(cuda), torch.cuda.stream(side):
+            turn = 0
+            while not stop.is_set() and time.monotonic() < end:
+                torch.mm(a, a, out=b)
+                done = torch.cuda.Event()
+                done.record(side)
+                if pending[turn] is not None:
+                    pending[turn].synchronize()
+                pending[turn], turn = done, 1 - turn
+        side.synchronize()
+
+    thread = threading.Thread(target=run, name="card-load")
+    thread.start()
+    try:
+        yield
+    finally:
+        stop.set()
+        thread.join()
 
 
 def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
@@ -1891,10 +2072,11 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
     assembler's and emitter's busy seconds, the host read of a chunk
     (read_batch, read_into and the stream's bmp.read into a pinned slot,
     an image a thread), the pinned and pageable H2D rates, and, under the
-    profiler, a check that every host-to-device copy of a 1080p stream run
-    is a pinned copy and that at least one overlaps a kernel (of another
-    chunk: a chunk's own kernels wait on its copies). Returns the stream
-    path's launch counts."""
+    profiler, two replayed runs of the 1080p files, alone and under
+    card_load: in each, every host-to-device copy is a pinned copy on a
+    stream that no kernel of the run ran on; under load, at least one
+    overlaps a kernel (of another chunk: a chunk's own kernels wait on its
+    copies). Returns the stream path's launch counts."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1951,7 +2133,7 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
     try:
         counts = counted("stream", lambda: runs.append(stream.encode_paths(
             every, default, writing(written, emitters), device=cuda)),
-            ("realdct", "entropy"))
+            MAIN_KERNELS)
     finally:
         stream._PinnedRing = ring
     check(runs[0].encoded == len(every), f"stream encoded {runs[0].encoded}")
@@ -2100,23 +2282,50 @@ def stream_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
 
     paths = sets["1920x1080"][1]
     trace = os.path.join(tmp, "stream_trace.json")
-    for _ in range(3):  # an empty trace is retried, as in busy_ms
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            stream.encode_paths(paths, default, writing({}), device=cuda)
-        prof.export_chrome_trace(trace)
-        names, overlapping, kernels, overlap_us = trace_overlap(trace)
-        if names and kernels:
-            break
-    pageable_copies = [n for n in names if "Pinned" not in n]
-    check(names and not pageable_copies,
-          f"stream: host-to-device copies not from pinned memory: "
-          f"{sorted(set(pageable_copies))} ({len(names)} copies)")
-    check(overlapping > 0, f"stream: none of {len(names)} host-to-device "
-          f"copies overlapped any of {kernels} kernels")
-    print(f"stream profile, {len(paths)} x 1920x1080: {len(names)} "
-          f"host-to-device copies, all pinned ({sorted(set(names))}); "
-          f"{overlapping} overlap a kernel of another chunk, "
-          f"{overlap_us:.0f} us in all ({card})", flush=True)
+
+    def profiled(load: bool) -> dict:
+        """A replayed stream run of the 1080p files under the profiler
+        (with card_load around it where `load`): trace_overlap's dict."""
+        for _ in range(3):  # an empty trace is retried, as in busy_ms
+            with (card_load(cuda) if load else contextlib.nullcontext()), \
+                    profile(activities=[ProfilerActivity.CUDA]) as prof:
+                stream.encode_paths(paths, default, writing({}), device=cuda)
+            prof.export_chrome_trace(trace)
+            seen = trace_overlap(trace)
+            if seen["copies"] and seen["kernels"]:
+                break
+        shared = seen["copy_streams"] & seen["kernel_streams"]
+        check(not shared, f"stream{' under load' if load else ''}: "
+              f"host-to-device copies ran on the kernels' stream(s) {shared}")
+        return seen
+
+    # Alone, a 21-image chunk's kernels (~2 ms) may end before the loader
+    # has read the next chunk's first file, so that no copy overlaps one;
+    # under card_load they run longer than that read, and a copy that no
+    # stream orders behind the chunk before it must overlap its kernels.
+    alone, loaded = profiled(False), profiled(True)
+    for seen in (alone, loaded):
+        pageable_copies = [n for n in seen["copies"] if "Pinned" not in n]
+        check(seen["copies"] and not pageable_copies,
+              f"stream: host-to-device copies not from pinned memory: "
+              f"{sorted(set(pageable_copies))} ({len(seen['copies'])} "
+              "copies)")
+    check(loaded["load_kernels"] > 0, "stream under load: no kernel of "
+          f"card_load ran (no kernel named *{LOAD_KERNEL}*)")
+    check(loaded["overlapping"] > 0,
+          f"stream under load: none of {len(loaded['copies'])} "
+          f"host-to-device copies overlapped any of {loaded['kernels']} "
+          f"kernels of the replayed run")
+    for label, seen in (("alone", alone), ("under card_load", loaded)):
+        print(f"stream profile, {len(paths)} x 1920x1080, replayed, "
+              f"{label}: {len(seen['copies'])} host-to-device copies, "
+              f"all pinned ({sorted(set(seen['copies']))}), on stream(s) "
+              f"{sorted(seen['copy_streams'], key=str)}, the kernels on "
+              f"{sorted(seen['kernel_streams'], key=str)}; "
+              f"{seen['overlapping']} overlap a kernel of another chunk, "
+              f"{seen['overlap_us']:.0f} us in all, of {seen['kernels']} "
+              f"kernels ({seen['load_kernels']} load kernels left out) "
+              f"({card})", flush=True)
     for line in program_lines(cuda, "stream program", BATCH_PROGRAMS, card):
         print(line, flush=True)
     return counts
@@ -2277,13 +2486,13 @@ started = time.time()
 import json, runpy, sys
 import torch
 torch_imported = time.time()
-from jpeg_encoder_torch.kernels import dct, entropy, pack
+from jpeg_encoder_torch.kernels import dct, entropy, front, pack
 imported = time.time()
 try:
     runpy.run_module("jpeg_encoder_torch.cli", run_name="__main__")
 finally:
-    kernels = (dct.REALDCT, entropy.ENTROPY, dct.BINDCT, dct.FASTDCT,
-               pack.PACK, dct.REALDCT_BLOCKS, dct.BINDCT_BLOCKS)
+    kernels = (front.FRONT, dct.REALDCT, entropy.ENTROPY, dct.BINDCT,
+               dct.FASTDCT, pack.PACK, dct.REALDCT_BLOCKS, dct.BINDCT_BLOCKS)
     print("LAUNCHES " + json.dumps({k.name: k.launches for k in kernels}),
           file=sys.stderr)
     print("TIMES " + json.dumps({"started": started, "torch": torch_imported,
@@ -2399,7 +2608,7 @@ def cli_phase(cuda, images_1080, images_4k, card, tmp) -> dict[str, int]:
             results[name] = run_cli(runs, launches)
         return launches
 
-    counts = counted("cli", drive, ("realdct", "entropy", "bindct"))
+    counts = counted("cli", drive, ("front", "realdct", "entropy", "bindct"))
     for name, runs in results.items():
         for args, (code, stdout, stderr, _) in zip(
                 dict(stages)[name], runs):
@@ -2510,7 +2719,7 @@ import json, sys, time
 import torch
 import torch.distributed as dist
 from jpeg_encoder_torch.config import EncoderConfig
-from jpeg_encoder_torch.kernels import dct, entropy, pack
+from jpeg_encoder_torch.kernels import dct, entropy, front, pack
 from jpeg_encoder_torch.parallel import multihost
 from jpeg_encoder_torch.utils import corpus
 
@@ -2548,8 +2757,8 @@ try:
         with open(f"{out}/{mode}-{rank}.jpeg", "wb") as f:
             f.write(result.file_bytes)
 finally:
-    kernels = (dct.REALDCT, entropy.ENTROPY, dct.BINDCT, dct.FASTDCT,
-               pack.PACK, dct.REALDCT_BLOCKS, dct.BINDCT_BLOCKS)
+    kernels = (front.FRONT, dct.REALDCT, entropy.ENTROPY, dct.BINDCT,
+               dct.FASTDCT, pack.PACK, dct.REALDCT_BLOCKS, dct.BINDCT_BLOCKS)
     print("LAUNCHES " + json.dumps({k.name: k.launches for k in kernels}),
           file=sys.stderr)
     print("REPORT " + json.dumps(report), file=sys.stderr)
@@ -3184,7 +3393,9 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
     from jpeg_encoder_torch import pipeline
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.kernels import front as front_kernel
     from jpeg_encoder_torch.ops import entropy as entropy_ops
+    from jpeg_encoder_torch.ops import front as front_ops
 
     config = EncoderConfig()
     bin_dct = EncoderConfig(dct_algorithm=DctAlgorithm.BIN_DCT)
@@ -3244,7 +3455,8 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
 
         cap120 = pipeline.restart_default_capacity_bytes(geom, 120)
         stages = {
-            "colour+pad+subsample": lambda: front_planes(rgb_dev, geom),
+            "colour+pad+subsample": lambda: front_ops.planes(rgb_dev, geom),
+            "front kernel": lambda: front_kernel.planes(rgb_dev, geom),
             "realdct kernel":
                 lambda: dct_kernel.real_dct_quant_planes_zigzag(*planes),
             "scan marshal":
@@ -3325,13 +3537,16 @@ def parent_phase(parent: str, cuda, card) -> None:
     from jpeg_encoder_torch.kernels import _build
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.kernels import front as front_kernel
     from jpeg_encoder_torch.kernels import pack as pack_kernel
 
     parent_csrc = os.path.join(parent, "jpeg_encoder_torch", "csrc")
+    # A kernel the parent does not have is not compared.
     changed = [k for k in all_kernels()
-               if not filecmp.cmp(os.path.join(_build.CSRC, f"{k.lib}.cu"),
-                                  os.path.join(parent_csrc, f"{k.lib}.cu"),
-                                  shallow=False)]
+               if os.path.exists(os.path.join(parent_csrc, f"{k.lib}.cu"))
+               and not filecmp.cmp(os.path.join(_build.CSRC, f"{k.lib}.cu"),
+                                   os.path.join(parent_csrc, f"{k.lib}.cu"),
+                                   shallow=False)]
     print(f"parent {parent}: kernels whose source differs: "
           f"{[k.name for k in changed]}", flush=True)
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
@@ -3339,7 +3554,8 @@ def parent_phase(parent: str, cuda, card) -> None:
                      build_dir=tmp)
         for k in changed:
             module, attr = next(
-                (m, a) for m in (dct_kernel, entropy_kernel, pack_kernel)
+                (m, a) for m in (dct_kernel, entropy_kernel, front_kernel,
+                                 pack_kernel)
                 for a, v in vars(m).items() if v is k)
             old = k.loaded_from(os.path.join(tmp, f"lib{k.lib}.so"))
             for name, fn in KERNEL_CALLS.items():
@@ -3365,26 +3581,33 @@ def parent_phase(parent: str, cuda, card) -> None:
 
 
 def all_kernels():
-    """Every kernel of the port: K1 realdct, K4 entropy, K3 bindct, K2
-    fastdct, K5 pack, K6a/b realdct_blocks, K6c bindct_blocks."""
+    """Every kernel of the port: F1 front, K1 realdct, K4 entropy, K3
+    bindct, K2 fastdct, K5 pack, K6a/b realdct_blocks, K6c
+    bindct_blocks."""
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+    from jpeg_encoder_torch.kernels import front as front_kernel
     from jpeg_encoder_torch.kernels import pack as pack_kernel
 
-    return (dct_kernel.REALDCT, entropy_kernel.ENTROPY, dct_kernel.BINDCT,
-            dct_kernel.FASTDCT, pack_kernel.PACK, dct_kernel.REALDCT_BLOCKS,
-            dct_kernel.BINDCT_BLOCKS)
+    return (front_kernel.FRONT, dct_kernel.REALDCT, entropy_kernel.ENTROPY,
+            dct_kernel.BINDCT, dct_kernel.FASTDCT, pack_kernel.PACK,
+            dct_kernel.REALDCT_BLOCKS, dct_kernel.BINDCT_BLOCKS)
 
 
 # The kernels each path must launch.
-E2E_KERNELS = ("realdct", "entropy", "bindct", "fastdct", "pack")
-BATCH_KERNELS = ("realdct", "entropy", "bindct", "fastdct")
+MAIN_KERNELS = ("front", "realdct", "entropy")
+E2E_KERNELS = ("front", "realdct", "entropy", "bindct", "fastdct", "pack")
+BATCH_KERNELS = ("front", "realdct", "entropy", "bindct", "fastdct")
 BLOCK_KERNELS = ("realdct_blocks", "bindct_blocks")
+PLANE_DCT = ("realdct", "fastdct", "bindct")
 
 
-def counted(path: str, drive, required) -> dict[str, int]:
+def counted(path: str, drive, required, fronts: bool = True
+            ) -> dict[str, int]:
     """Set every launch count to 0, drive one path, read the counts; fail
-    unless every kernel in `required` launched. A drive that runs the path
+    unless every kernel in `required` launched and, with fronts (a path of
+    the program, not a timing of its kernels one by one), unless F1
+    launched as often as the plane DCTs together. A drive that runs the path
     in processes of its own returns the launches they reported (run_cli),
     which are added in."""
     from jpeg_encoder_torch import graphs
@@ -3397,6 +3620,12 @@ def counted(path: str, drive, required) -> dict[str, int]:
     counts = {k.name: k.launches + children.get(k.name, 0) for k in kernels}
     check(all(counts[name] for name in required),
           f"a kernel of the {path} path never ran: {counts}")
+    # Every plane DCT of a path takes the planes of one front launch
+    # (pipeline.scan_entries): no path's front runs as plain ops.
+    check(not fronts
+          or counts["front"] == sum(counts[name] for name in PLANE_DCT),
+          f"the {path} path's front launches differ from its plane-DCT "
+          f"launches: {counts}")
     pools = sum(p.pool_bytes for _, p in graphs.CACHE.programs(
         torch.device("cuda", torch.cuda.current_device())))
     print(f"{path} launches: {counts}; graph programs evicted "
@@ -3461,6 +3690,7 @@ def main() -> int:
                             k4_band_phase(cuda, images_1080))
     errors["pack"] = k5_phase(cuda, images_1080)
     errors.update(k6_phase(cuda, rng))
+    errors["front"] = front_phase(cuda, images_1080, images_4k, card)
     phase_s = {}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
@@ -3504,11 +3734,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
         path_counts.append(counted(
             "trace", lambda: trace_phase(cuda, images_1080, card, tmp),
-            ("realdct", "entropy")))
+            MAIN_KERNELS))
     phase_s["trace"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     path_counts.append(counted("benchmark", lambda: benchmark_phase(card),
-                               ("realdct", "entropy")))
+                               MAIN_KERNELS))
     phase_s["benchmark"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     main_launches = {k.name: sum(c[k.name] for c in path_counts)
@@ -3518,7 +3748,7 @@ def main() -> int:
         # CUDA graph counts once, at capture): read and checked, but not
         # added to the main paths' launches of the kernels line.
         counted("bench", lambda: bench_phase(cuda, main_launches, tmp)
-                and None, [k.name for k in all_kernels()])
+                and None, [k.name for k in all_kernels()], fronts=False)
     phase_s["bench"] = time.perf_counter() - t0
     print(f"bench phase: {phase_s['bench']:.1f} s wall ({card})", flush=True)
     t0 = time.perf_counter()

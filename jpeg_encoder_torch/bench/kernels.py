@@ -5,19 +5,20 @@ tools/time_kernel_only.py and tools/profile_stages.py for the port.
         [--height 1080 --width 1920] [--calls 10] [--launches JSON]
 
 Operands: one corpus frame (landscape) at 1920x1080 4:2:0, through the
-plain front (colour, pad, subsample), K1 and the scan marshal, as
-chip_smoke.py's timing phase builds them. Each kernel is timed alone on
-them by graph_ms (bench/timing.py): K1 realdct, K2 fastdct, K3 bindct on
-the three planes; K4 entropy on the unbroken scan; K5 pack on the
+front (F1), K1 and the scan marshal, as chip_smoke.py's timing phase
+builds them. Each kernel is timed alone on them by graph_ms
+(bench/timing.py): F1 front on the frame; K1 realdct, K2 fastdct, K3
+bindct on the three planes; K4 entropy on the unbroken scan; K5 pack on the
 assemble tier's rows at restart 120; K6a/b realdct_blocks and K6c
 bindct_blocks on the Y blocks; and torch.matmul, K2's product alone, as
 its yardstick. Beside each: its bound (the larger of its bytes once over
 the card's memory rate and its operations over their peak; kernel_bounds)
 and, with --launches (a JSON object of kernel name -> launches on the main
 paths, as chip_smoke.py counts them), launches x (graph ms - bound), by
-which the table is ranked. Then the stage map: the front, K1, the
-marshal, K4 and encode_core as a whole, each by graph_ms (encode_core, not
-the capacity ladder, which reads the card); beside them encode_array's
+which the table is ranked. Then the stage map: the plain front (its torch
+ops, ops/front.py) and F1, K1, the marshal, K4 and encode_core as a
+whole, each by graph_ms (encode_core, not the capacity ladder, which
+reads the card); beside them encode_array's
 device program (pipeline.scan_program through graphs.run, on the resident
 frame) by the window timer on the card's events, replayed and eager
 (graphs.disabled()): the host's launches against one graph launch. With
@@ -40,8 +41,10 @@ from jpeg_encoder_torch.bench import timing
 from jpeg_encoder_torch.config import EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+from jpeg_encoder_torch.kernels import front as front_kernel
 from jpeg_encoder_torch.kernels import pack as pack_kernel
-from jpeg_encoder_torch.ops import color, sample
+from jpeg_encoder_torch.ops import front as front_ops
+from jpeg_encoder_torch.ops import sample
 from jpeg_encoder_torch.ops import dct as dct_ops
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.parallel.devices import resolve_device
@@ -70,6 +73,9 @@ REALDCT_BLOCK_OPS = 8 * 64 + 64 * 64 * 2 + 2 * 64
 MAGIC_DIVIDE_OPS = 5
 BINDCT_BLOCK_OPS = 16 * 43 + 64 + 64 * MAGIC_DIVIDE_OPS
 FAST_BLOCK_FLOPS = 3 * 2 * 64 * 64
+# Operations per pixel of the front (F1): 9 products, 2 offsets and 4 sums
+# of the three colour chains, a truncation and two clamps a channel.
+FRONT_PIXEL_OPS = 9 + 2 + 4 + 3 * 3
 PACK_RESTART = 120  # K5's operands: the assemble tier's rows at this interval
 
 
@@ -79,6 +85,21 @@ def bound(num_bytes: int, ops: int = 0, rate: float = 1.0) -> tuple:
     t_bytes = num_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def front_bound(geom, images: int = 1, rows: bool = False) -> tuple:
+    """F1's bound for `images` images of geom: each image's RGB bytes (or
+    stored rows, with their padding) read once, the three padded planes
+    written once; FRONT_PIXEL_OPS a pixel at the FP32 issue rate."""
+    from jpeg_encoder_torch.io import bmp
+
+    read = geom.height * (bmp.row_stride(geom.width) if rows
+                          else 3 * geom.width)
+    written = (geom.padded_height * geom.padded_width
+               + 2 * geom.chroma_height * geom.chroma_width)
+    return bound(images * (read + written),
+                 images * geom.width * geom.height * FRONT_PIXEL_OPS,
+                 FP32_ISSUE_OPS)
 
 
 def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
@@ -94,6 +115,7 @@ def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
         z, geom.h_factor * geom.v_factor, entries_per_interval=epi)
     pack_row_bits = scan.assemble_operands(slot_bits, slot_lens, epi)[2]
     return {
+        "front": front_bound(geom),
         "realdct": bound(plane_bytes, n * REALDCT_BLOCK_OPS, FP32_ISSUE_OPS),
         "fastdct": bound(plane_bytes, n * FAST_BLOCK_FLOPS,
                          BF16_TENSOR_FLOPS),
@@ -113,15 +135,6 @@ def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
     }
 
 
-def front_planes(rgb: torch.Tensor, geom: FrameGeometry):
-    """The main path's colour, pad and subsample stages (plain ops)."""
-    y, cb, cr = color.rgb_to_ycbcr(rgb)
-    y = sample.pad_plane(y, geom)
-    cb = sample.subsample_plane(sample.pad_plane(cb, geom), geom)
-    cr = sample.subsample_plane(sample.pad_plane(cr, geom), geom)
-    return y, cb, cr
-
-
 @dataclasses.dataclass
 class Operands:
     """One 4:2:0 frame's operands of every kernel, on one device."""
@@ -139,7 +152,7 @@ class Operands:
     def build(cls, rgb: np.ndarray, device: torch.device) -> Operands:
         geom = EncoderConfig().geometry(rgb.shape[1], rgb.shape[0])
         rgb_dev = timing.resident(rgb, device)
-        planes = front_planes(rgb_dev, geom)
+        planes = front_kernel.planes(rgb_dev, geom)
         coeffs = dct_kernel.real_dct_quant_planes_zigzag(*planes)
         z = entropy_ops.marshal_scan_inputs(*coeffs, geom)
         epi = entropy_ops.entries_per_interval(geom, PACK_RESTART)
@@ -159,6 +172,8 @@ def kernel_calls(ops: Operands) -> list[tuple]:
     words, offsets, cap120 = ops.pack
     part = functools.partial
     return [
+        ("front", part(front_kernel.planes, ops.rgb, ops.geom),
+         part(front_ops.planes, ops.rgb, ops.geom)),
         ("realdct", part(dct_kernel.real_dct_quant_planes_zigzag, *p),
          part(dct_ops.real_dct_quant_planes_zigzag, *p)),
         ("fastdct", part(dct_kernel.real_dct_fast_planes_zigzag, *p),
@@ -191,7 +206,9 @@ def stage_calls(ops: Operands) -> dict:
     """encode_core's stages on ops, and encode_core as a whole."""
     geom, planes = ops.geom, ops.planes
     return {
-        "colour+pad+subsample": functools.partial(front_planes, ops.rgb, geom),
+        "colour+pad+subsample": functools.partial(front_ops.planes, ops.rgb,
+                                                  geom),
+        "front kernel": functools.partial(front_kernel.planes, ops.rgb, geom),
         "realdct kernel": functools.partial(
             dct_kernel.real_dct_quant_planes_zigzag, *planes),
         "scan marshal": functools.partial(entropy_ops.marshal_scan_inputs,

@@ -11,7 +11,8 @@ pipeline.encode_array on the device and compares each file byte for byte
 with the oracle's (jpeg_encoder_torch/oracle.py). --corpus does the same
 for the 4 corpus frames at 256x384 x 3 ratios x {RealDCT, binDCT}.
 --color converts all 2^24 RGB triples, as one 4096x4096 image, through
-ops/color.rgb_to_ycbcr on the device and compares every channel value
+the front at 4:4:4 (kernels/front.planes: the F1 kernel on a card) on the
+device and compares every channel value
 with oracle.rgb_to_ycbcr_exact (--step S takes every S-th value of each
 channel instead). Every run exits 1 on any mismatch; the last line of
 stdout is one JSON line.
@@ -28,7 +29,7 @@ from jpeg_encoder_torch import oracle, pipeline
 from jpeg_encoder_torch.bench import timing
 from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
 from jpeg_encoder_torch.io import jfif
-from jpeg_encoder_torch.ops import color
+from jpeg_encoder_torch.kernels import front as front_kernel
 from jpeg_encoder_torch.parallel.devices import resolve_device
 from jpeg_encoder_torch.utils import corpus
 
@@ -106,18 +107,22 @@ def color_grid(step: int = 1) -> np.ndarray:
 
 
 def color_mismatches(rgb: np.ndarray, device: torch.device) -> int:
-    """Channel values of ops/color.rgb_to_ycbcr on `device` that differ
-    from the oracle's."""
-    got = color.rgb_to_ycbcr(timing.resident(rgb, device))
+    """Channel values of the front (kernels/front.planes at 4:4:4: on a
+    card the F1 kernel, on the CPU its plain version) on `device` that
+    differ from the oracle's colour conversion."""
+    height, width = rgb.shape[:2]
+    geom = EncoderConfig(subsampling_ratio=(4, 4, 4)).geometry(width, height)
+    got = front_kernel.planes(timing.resident(rgb, device), geom)
     want = oracle.rgb_to_ycbcr_exact(rgb)
-    return sum(int((g.cpu().numpy() != w).sum()) for g, w in zip(got, want))
+    return sum(int((g[:height, :width].cpu().numpy() != w).sum())
+               for g, w in zip(got, want))
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = timing.parser(__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--color", action="store_true",
-                      help="all 2^24 RGB triples through the colour stage")
+                      help="all 2^24 RGB triples through the front kernel")
     mode.add_argument("--corpus", action="store_true",
                       help="4 corpus frames x 3 ratios x 2 algorithms")
     ap.add_argument("--step", type=int, default=1,

@@ -11,8 +11,9 @@ read(path, out=...) is the staged read of the single-file entry
 (pipeline.encode_file) and of the stream's loader: it validates the
 header, reads the file's pixel rows as stored (bottom row first, BGR, each
 row padded to 4 bytes) straight into a caller's buffer, with no bytes
-object and no host decode, and returns them as Rows; rows_to_rgb does the
-strip, flip and swap on whatever device the rows were copied to. With
+object and no host decode, and returns them as Rows, which the front kernel
+(kernels/front.py) reads as stored; rows_to_rgb, its plain version's first
+step, does the strip, flip and swap as torch ops. With
 ranges > 1 the native runtime reads the rows as that many contiguous
 ranges at once, on its read pool (file_ranges is encode_file's count).
 

@@ -83,6 +83,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                          ctypes.c_int32, i32p, i32p]
     lib.jt_read_pool_threads.restype = ctypes.c_int32
     lib.jt_read_pool_threads.argtypes = []
+    lib.jt_read_pool_hold.restype = None
+    lib.jt_read_pool_hold.argtypes = [ctypes.c_int32, i32p]
     lib.jt_bmp_decode_batch.restype = ctypes.c_int
     lib.jt_bmp_decode_batch.argtypes = [
         u8pp, i64p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, u8p,

@@ -13,11 +13,13 @@
 // Error codes: 0 = ok, negative = validation failure (see JT_ERR_*).
 
 #include <fcntl.h>
+#include <pthread.h>
 #include <sched.h>
 #include <sys/stat.h>
 #include <unistd.h>
 
 #include <atomic>
+#include <chrono>
 #include <cerrno>
 #include <condition_variable>
 #include <cstdint>
@@ -236,7 +238,11 @@ int split_ranges(uint8_t* out, int64_t nbytes, int64_t offset,
 // The read pool: threads started once a process (one for each CPU the
 // process may use) that read ranges handed to them by any number of
 // calling threads. Never destroyed, so its threads live as long as the
-// process; a forked child starts a pool of its own.
+// process; a forked child, which has none of them, starts a pool of its
+// own at its first split read (read_pool compares the pid) and leaves the
+// parent's copy alone. fork() holds g_pool_mu across the copy
+// (pthread_atfork, below), so the child never inherits it locked by a
+// thread it does not have.
 class ReadPool {
  public:
   struct Job {
@@ -301,6 +307,15 @@ class ReadPool {
 std::mutex g_pool_mu;
 ReadPool* g_pool = nullptr;
 pid_t g_pool_pid = 0;
+
+// Taken before fork() and released after it in both processes: a thread
+// of the parent holding g_pool_mu at the fork would leave it locked in the
+// child forever.
+void pool_lock_for_fork() { g_pool_mu.lock(); }
+void pool_unlock_after_fork() { g_pool_mu.unlock(); }
+const int g_pool_atfork =
+    pthread_atfork(pool_lock_for_fork, pool_unlock_after_fork,
+                   pool_unlock_after_fork);
 
 int usable_cpus() {
   cpu_set_t set;
@@ -450,6 +465,15 @@ int32_t jt_read_pool_threads() {
   int32_t error = 0;
   ReadPool* pool = read_pool(&error);
   return pool == nullptr ? -error : pool->threads();
+}
+
+// Holds the read pool's lock on the calling thread for ms milliseconds,
+// *held set to 1 once it is taken: a thread that starts the pool while
+// another forks, made to order for a test of the fork handlers.
+void jt_read_pool_hold(int32_t ms, int32_t* held) {
+  std::lock_guard<std::mutex> hold(g_pool_mu);
+  __atomic_store_n(held, 1, __ATOMIC_SEQ_CST);
+  std::this_thread::sleep_for(std::chrono::milliseconds(ms));
 }
 
 // Threaded batch ingest (the "data loader"): decode n same-sized BMP

@@ -24,6 +24,12 @@ from jpeg_encoder_torch import graphs
 _F32 = np.float32
 
 
+# The chains' nine f32 coefficients, in the tables' row order (the front
+# kernel, kernels/front.py, forms the same products from them).
+COEFFICIENTS = np.array([0.299, 0.587, 0.114, 0.168736, 0.331264, 0.5, 0.5,
+                         0.418688, 0.081312], dtype=_F32)
+
+
 @functools.cache
 def _channel_luts_np() -> np.ndarray:
     """(9, 256) f32 per-channel contributions, exactly per-op rounded.
@@ -32,16 +38,17 @@ def _channel_luts_np() -> np.ndarray:
     cr_r rows already hold the first two operations of their chains.
     """
     c = np.arange(256, dtype=_F32)
+    k = COEFFICIENTS
     return np.stack([
-        _F32(0.299) * c,
-        _F32(0.587) * c,
-        _F32(0.114) * c,
-        _F32(128.0) - _F32(0.168736) * c,
-        _F32(0.331264) * c,
-        _F32(0.5) * c,
-        _F32(128.0) + _F32(0.5) * c,
-        _F32(0.418688) * c,
-        _F32(0.081312) * c,
+        k[0] * c,
+        k[1] * c,
+        k[2] * c,
+        _F32(128.0) - k[3] * c,
+        k[4] * c,
+        k[5] * c,
+        _F32(128.0) + k[6] * c,
+        k[7] * c,
+        k[8] * c,
     ]).astype(_F32)
 
 

@@ -3,9 +3,11 @@
 Port of jpeg_encoder_tpu/parallel/batch.py. The JAX package vmaps its
 single-image program over the batch and shards the batch over a mesh;
 here the batch dimension is written out (pipeline.scan_entries on (B, H,
-W, 3)), and `devices` takes the mesh's place:
+W, 3), or on (B, H, stride) stored rows), and `devices` takes the mesh's
+place:
 
-* the front (colour, pad, subsample) runs on (B, H, W, 3) at once;
+* the front (colour, pad, subsample; the F1 kernel) runs on the whole
+  chunk in one launch;
 * the B padded planes of each component are stacked into one plane, so K1,
   K2 or K3 codes the whole chunk in one launch without a change;
 * K4 codes every image, or every restart interval of every image, into its
@@ -25,8 +27,8 @@ pinned upload ring, pipeline.upload, piece after piece, each piece's copy
 to the card overlapping the host's filling of the next; device work on
 the current stream, enqueued, nothing synchronised; parallel/stream.py
 uploads the files' stored rows on its own and calls dispatch_uploaded
-with them, as bmp.Rows: the program reorders them first,
-bmp.rows_to_rgb), fetch_chunk (one copy of the bit counts,
+with them, as bmp.Rows: the front kernel reads them as stored,
+kernels/front.py), fetch_chunk (one copy of the bit counts,
 then one copy of every row up to the longest payload) and assemble_chunk
 (JFIF files on the host; a member whose payload overflowed the chunk's
 shared capacity is re-encoded alone through pipeline.encode_array from
@@ -160,9 +162,10 @@ def program_keys(geom: FrameGeometry, config: EncoderConfig, capacity: int,
                              capacity, images)}
 
 
-def front_entries(rgb: torch.Tensor, config, geom) -> torch.Tensor:
-    """The front half over an uploaded (B, H, W, 3) uint8 chunk: its
-    (B * E, 64) scan entries, on rgb's device."""
+def front_entries(rgb: torch.Tensor | bmp.Rows, config, geom) -> torch.Tensor:
+    """The front half over an uploaded (B, H, W, 3) uint8 chunk, or bmp.Rows
+    of (B, H, stride) stored rows: its (B * E, 64) scan entries, on the
+    chunk's device."""
     z, _ = pipeline.scan_entries(
         rgb, geom, config.dct_algorithm, config.quality,
         fast_dct=config.fast_dct, bin_dct_descale=config.bin_dct_descale,
@@ -188,13 +191,13 @@ def _encode_entries(z, config, geom, capacity, luts=None):
 def _form(images):
     """A chunk as a program takes it, (B, H, W, 3) RGB or bmp.Rows of (B,
     H, stride) stored rows: (its source form, the program's inputs, a
-    function that makes a program of RGB take them). The rows are reordered
-    at the program's head (bmp.rows_to_rgb), on its device."""
+    function that makes a program of an image take its input tensor). The
+    front kernel reads the rows as stored (kernels/front.py)."""
     if isinstance(images, bmp.Rows):
-        width = images.width
+        width, height = images.width, images.height
         return ("bmp-rows", {"rows": images.rows},
                 lambda program: lambda rows: program(
-                    bmp.rows_to_rgb(rows, width)))
+                    bmp.Rows(rows, width, height)))
     return "rgb", {"rgb": images}, lambda program: program
 
 

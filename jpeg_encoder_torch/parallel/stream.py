@@ -19,8 +19,8 @@ four legs run at once, on queues of depth QUEUE_DEPTH a share:
                      the chunk's rows, or dispatch_optimized_encode with
                      the chunk's tables built on the host) on a compute
                      stream that first waits on the upload's (or the
-                     statistics pass's) event; the program reorders the
-                     rows first (bmp.rows_to_rgb), on the card
+                     statistics pass's) event; the program's front
+                     kernel reads the rows as stored (kernels/front.py)
   assembler thread : fetch_chunk and JFIF assembly (single-image retries
                      included) of chunk k-1, on a stream of its own that
                      waits on chunk k-1's encode

@@ -4,10 +4,11 @@ Port of jpeg_encoder_tpu/pipeline.py: encode_array with every DCT variant
 (RealDCT, --fast-dct, binDCT with and without the descale fix), every
 subsampling ratio and quality, restart markers and two-pass optimized
 Huffman tables (stats_core, then custom_core), alone and combined.
-Colour, padding, subsampling and the scan marshal are plain PyTorch
-ops; the DCT and the scan encoder are kernels (kernels/dct.py,
-kernels/entropy.py, kernels/pack.py through scan.py), which run their
-CUDA code on CUDA tensors and their plain PyTorch versions on CPU tensors.
+The front (colour, padding, subsampling: kernels/front.py), the DCT and
+the scan encoder are kernels (kernels/dct.py, kernels/entropy.py,
+kernels/pack.py through scan.py), which run their CUDA code on CUDA
+tensors and their plain PyTorch versions on CPU tensors; the scan marshal
+is plain PyTorch ops.
 The host builds optimal tables, stuffs 0xFF bytes and writes the JFIF
 container (the port's tables.py and io/).
 
@@ -15,8 +16,8 @@ encode_file does not decode the BMP on the host: it reads the file's pixel
 rows as stored (io/bmp.read(path, out=..., ranges=...), several ranges at
 once on the native read pool) into a host buffer of its thread's
 (Staging: pinned on a card, one a device and geometry, a few a thread),
-uploads them as they are, and the program's first op strips, flips and
-swaps them (bmp.rows_to_rgb). encode_array takes either form,
+uploads them as they are, and the front kernel reads them as stored
+(bottom row first, BGR, padded rows). encode_array takes either form,
 an RGB array or bmp.Rows; the form is part of the program's key. The
 in-memory entries (encode_array of an array, parallel/batch's chunks,
 parallel/tiled's band rows) go up through upload: on a card the calling
@@ -48,7 +49,7 @@ from jpeg_encoder_torch import graphs, scan, tables, trace
 from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.io import bmp, jfif
 from jpeg_encoder_torch.kernels import dct as dct_kernel
-from jpeg_encoder_torch.ops import color, sample
+from jpeg_encoder_torch.kernels import front as front_kernel
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.ops.entropy import worst_case_capacity_bytes
 from jpeg_encoder_torch.parallel.devices import resolve_device
@@ -158,7 +159,7 @@ def natural_order(
 
 
 def scan_entries(
-    rgb: torch.Tensor,
+    image: torch.Tensor | bmp.Rows,
     geom: FrameGeometry,
     algorithm: DctAlgorithm,
     quality: int | None = None,
@@ -167,32 +168,24 @@ def scan_entries(
     bin_dct_descale: bool = False,
     live_rows: int | None = None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
-    """(H, W, 3) uint8 on a device -> ((E, 64) int16 scan entries, the
-    (N_i, 64) zigzag coefficients [Y, Cb, Cr]): the front half every core
-    shares (colour, pad, subsample, DCT, scan marshal).
+    """(H, W, 3) uint8 RGB on a device, or a BMP file's stored rows there
+    (bmp.Rows) -> ((E, 64) int16 scan entries, the (N_i, 64) zigzag
+    coefficients [Y, Cb, Cr]): the front half every core shares (the
+    front: colour, pad, subsample; the DCT; the scan marshal).
 
-    A batch (B, H, W, 3) gives the B images' entries one after another,
-    (B * E, 64): the B padded planes of each component are stacked into
-    one (B * Hp, Wp) plane (Hp is a multiple of 8, so image b's blocks are
-    rows b * ny ... (b + 1) * ny - 1 of the DCT's raster order), the DCT
-    kernels run once on the three stacked planes, and the marshal gathers
-    each image's entries from [all Y | all Cb | all Cr].
+    A batch (B, H, W, 3), or rows of (B, H, stride), gives the B images'
+    entries one after another, (B * E, 64): the B padded planes of each
+    component are stacked into one (B * Hp, Wp) plane (Hp is a multiple
+    of 8, so image b's blocks are rows b * ny ... (b + 1) * ny - 1 of the
+    DCT's raster order), the DCT kernels run once on the three stacked
+    planes, and the marshal gathers each image's entries from [all Y | all
+    Cb | all Cr].
 
-    live_rows zeroes the Y, Cb and Cr rows at or past it, counted over the
-    B * H rows of the stack, after colour conversion: the band path's
-    padding rows (parallel/tiled.py), which the reference's zero-filled
-    planes hold as 0 in every plane (zero RGB would give Cb = Cr = 128).
+    The front is the F1 kernel (kernels/front.py; its plain version on the
+    CPU). live_rows zeroes the Y, Cb and Cr rows at or past it, counted
+    over the B * H rows of the stack (ops/front.planes).
     """
-    y, cb, cr = color.rgb_to_ycbcr(rgb)
-    if live_rows is not None:
-        rows = rgb.shape[:-2]
-        live = (torch.arange(rows.numel(), device=rgb.device)
-                < live_rows).reshape(*rows, 1)
-        y, cb, cr = (p * live for p in (y, cb, cr))
-    y = sample.pad_plane(y, geom)
-    cb = sample.subsample_plane(sample.pad_plane(cb, geom), geom)
-    cr = sample.subsample_plane(sample.pad_plane(cr, geom), geom)
-    y, cb, cr = (p.reshape(-1, p.shape[-1]) for p in (y, cb, cr))
+    y, cb, cr = front_kernel.planes(image, geom, live_rows)
     coeffs = dct_planes_zigzag(
         y, cb, cr, algorithm, quality,
         fast_dct=fast_dct, bin_dct_descale=bin_dct_descale,
@@ -709,8 +702,8 @@ def encode_array(
     rgb may also be a BMP file's stored rows (bmp.Rows, from bmp.read(path,
     out=...)): they are uploaded as they are (from pinned memory without
     waiting, when they lie there: their owner keeps them until the copy
-    has completed) and reordered at the head of the program
-    (bmp.rows_to_rgb); the bytes are the same. On a card an input in
+    has completed) and read as stored by the program's front kernel
+    (kernels/front.py); the bytes are the same. On a card an input in
     pageable host memory, an array among them, goes up through the
     calling thread's pinned upload ring (upload).
 
@@ -762,11 +755,11 @@ def encode_array(
                         source)
 
     def front_program(program):
-        """program(rgb) as it takes this call's image: the stored rows go
-        through bmp.rows_to_rgb first, on the device."""
+        """program(image) as it takes this call's input tensor: the stored
+        rows go to the front kernel as bmp.Rows."""
         if source == "rgb":
             return program
-        return lambda rows: program(bmp.rows_to_rgb(rows, width))
+        return lambda rows: program(bmp.Rows(rows, width, height))
     front = dict(fast_dct=config.fast_dct,
                  bin_dct_descale=config.bin_dct_descale)
     specs = host_luts = None

@@ -29,15 +29,16 @@ import numpy as np
 import jpeg_encoder_torch
 from jpeg_encoder_torch import config, constants, graphs, native, oracle, pipeline, scan, tables
 from jpeg_encoder_torch.io import bmp, jfif
-from jpeg_encoder_torch.kernels import _build, dct, entropy, pack
+from jpeg_encoder_torch.kernels import _build, dct, entropy, front, pack
 from jpeg_encoder_torch.ops import color, sample
+from jpeg_encoder_torch.ops import front as front_ops
 from jpeg_encoder_torch.ops import dct as dct_ops
 from jpeg_encoder_torch.ops import entropy as entropy_ops
 from jpeg_encoder_torch.parallel import batch, multihost, stream, tiled
 from jpeg_encoder_torch.utils import bits, corpus
 import importlib
-for name in ("__main__", "dataset", "kernels", "matrix", "parity", "scaling",
-             "tiled", "timing"):
+for name in ("__main__", "dataset", "folder_legs", "kernels", "matrix",
+             "parity", "scaling", "tiled", "timing"):
     importlib.import_module("jpeg_encoder_torch.bench." + name)
 
 rgb = np.random.default_rng(0).integers(0, 256, (24, 40, 3), dtype=np.uint8)

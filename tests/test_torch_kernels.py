@@ -34,6 +34,7 @@ from jpeg_encoder_torch import constants, graphs, pipeline, scan, tables
 from jpeg_encoder_torch.kernels import _build
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
+from jpeg_encoder_torch.kernels import front as front_kernel
 from jpeg_encoder_torch.kernels import pack as pack_kernel
 from jpeg_encoder_torch.ops import dct as dct_ops
 from jpeg_encoder_torch.ops import entropy as entropy_ops
@@ -102,12 +103,15 @@ def test_build_runs_one_nvcc_per_source(monkeypatch, tmp_path):
 
 
 def test_every_kernel_has_its_source():
-    """The seven kernels come from the five csrc sources (the per-block
-    tier shares realdct.cu and bindct.cu with K1 and K3), each replacing a
-    Pallas kernel at a file:line that holds a pallas_call's entry point."""
-    kernels = (dct_kernel.REALDCT, dct_kernel.FASTDCT, dct_kernel.BINDCT,
-               entropy_kernel.ENTROPY, pack_kernel.PACK,
-               dct_kernel.REALDCT_BLOCKS, dct_kernel.BINDCT_BLOCKS)
+    """The eight kernels come from the six csrc sources (the per-block
+    tier shares realdct.cu and bindct.cu with K1 and K3), each of K1-K6
+    replacing a Pallas kernel at a file:line that holds a pallas_call's
+    entry point, and F1 the JAX package's front, XLA ops whose first line
+    is the colour conversion."""
+    tpu = (dct_kernel.REALDCT, dct_kernel.FASTDCT, dct_kernel.BINDCT,
+           entropy_kernel.ENTROPY, pack_kernel.PACK,
+           dct_kernel.REALDCT_BLOCKS, dct_kernel.BINDCT_BLOCKS)
+    kernels = tpu + (front_kernel.FRONT,)
     assert sorted({k.lib for k in kernels}) == _build.names()
     assert len({k.name for k in kernels}) == len(kernels)
     assert dct_kernel.REALDCT_BLOCKS.lib == "realdct"
@@ -116,7 +120,11 @@ def test_every_kernel_has_its_source():
         assert k.source == f"jpeg_encoder_torch/csrc/{k.lib}.cu"
         path, line = k.replaces.split(":")
         with open(os.path.join(REPO, path)) as f:
-            assert f.read().splitlines()[int(line) - 1].startswith("def ")
+            text = f.read().splitlines()[int(line) - 1]
+        if k in tpu:
+            assert text.startswith("def ")
+        else:
+            assert text.strip() == "y, cb, cr = color.rgb_to_ycbcr(rgb)"
 
 
 @pytest.mark.cuda

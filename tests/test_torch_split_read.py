@@ -10,7 +10,9 @@ one pread at widths 1-64, at heights whose rows no range count divides,
 at 1, 2, 3, 4 and 8 ranges; the ranges used against a model of the cut;
 the reorder against the port's and the JAX package's decode; the errors
 (a truncated file, a missing one, a short buffer; a short range and a
-failed pread at the native call); four threads reading at once; the
+failed pread at the native call); four threads reading at once; a
+forked child's split read on a pool of its own, and a fork while a
+thread holds the pool's lock; the
 trace's range counter for encode_file and for the stream's loader, which
 reads one range; encode_file's bytes against the JAX package's oracle;
 bench.host_io --split on the CPU.
@@ -322,6 +324,97 @@ def test_four_threads_read_different_files_at_once(tmp_path):
     cpus = len(os.sched_getaffinity(0))
     assert lib.jt_read_pool_threads() == cpus
     assert lib.jt_read_pool_threads() == cpus
+
+
+def _native_rows(lib, path: str, ranges: int) -> np.ndarray:
+    """The file's stored rows by the native calls alone (no torch, so a
+    forked child may run it): jt_bmp_open_rows, then jt_read_ranges into
+    a NumPy buffer."""
+    fd, width, height = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    offset, err, used = ctypes.c_int64(), ctypes.c_int32(), ctypes.c_int32()
+    assert lib.jt_bmp_open_rows(
+        os.fsencode(path), ctypes.byref(fd), ctypes.byref(width),
+        ctypes.byref(height), ctypes.byref(offset), ctypes.byref(err)) == 0
+    rows = np.empty(height.value * bmp.row_stride(width.value), np.uint8)
+    try:
+        rc = lib.jt_read_ranges(
+            fd.value, rows.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+            rows.size, offset.value, ranges, ctypes.byref(used),
+            ctypes.byref(err))
+    finally:
+        os.close(fd.value)
+    assert rc == 0 and used.value == ranges, (rc, used.value)
+    return rows
+
+
+def _forked(child, timeout: float = 60.0) -> int:
+    """Fork; the child runs child() -> its exit code (1 on an exception)
+    and leaves by os._exit. -> the child's exit status; the child is
+    killed, and the test fails, if it has not exited within timeout."""
+    import time
+
+    pid = os.fork()
+    if pid == 0:
+        code = 1
+        try:
+            code = child()
+        finally:
+            os._exit(code)
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        done, status = os.waitpid(pid, os.WNOHANG)
+        if done:
+            return os.waitstatus_to_exitcode(status)
+        time.sleep(0.01)
+    os.kill(pid, 9)
+    os.waitpid(pid, 0)
+    pytest.fail(f"the forked child did not exit within {timeout} s")
+
+
+@pytest.mark.filterwarnings("ignore::DeprecationWarning")
+def test_a_forked_child_splits_on_a_pool_of_its_own(files):
+    """A split read starts the pool; a forked child, which has none of its
+    threads, reads the same file in 8 ranges on a pool of its own: its
+    rows equal the parent's, it starts a thread a CPU, and it exits 0."""
+    lib = _lib()
+    path = files[17, "long"]
+    parent = _native_rows(lib, path, 8)
+    assert lib.jt_read_pool_threads() == len(os.sched_getaffinity(0))
+
+    def child():
+        got = _native_rows(lib, path, 8)
+        return 0 if (np.array_equal(got, parent)
+                     and lib.jt_read_pool_threads()
+                     == len(os.sched_getaffinity(0))) else 3
+
+    assert _forked(child) == 0
+    assert np.array_equal(_native_rows(lib, path, 8), parent)
+
+
+@pytest.mark.filterwarnings("ignore::DeprecationWarning")
+def test_a_fork_while_a_thread_holds_the_pool_lock(files):
+    """A second thread holds the read pool's lock (jt_read_pool_hold, as a
+    thread starting the pool does) when the main thread forks: fork()
+    waits for it (pthread_atfork), so the child, which has no such thread,
+    splits 8 ranges on a pool of its own and exits 0 within 5 s. Without
+    the handlers the child inherits the lock held and never splits."""
+    import time
+
+    lib = _lib()
+    path = files[33, "long"]
+    want = _native_rows(lib, path, 8)
+    held = ctypes.c_int32(0)
+    holder = threading.Thread(target=lib.jt_read_pool_hold,
+                              args=(300, ctypes.byref(held)))
+    holder.start()
+    try:
+        while not held.value:
+            time.sleep(0.001)
+        code = _forked(lambda: 0 if np.array_equal(
+            _native_rows(lib, path, 8), want) else 3, timeout=5)
+    finally:
+        holder.join()
+    assert code == 0
 
 
 # --------------------------------------------------------------------------

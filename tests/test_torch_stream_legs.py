@@ -462,6 +462,54 @@ def test_host_io_bench_on_cpu(tmp_path, capsys):
     assert line["card"] == "cpu" and line["pinned"] is False
 
 
+def test_folder_legs_bench_on_cpu(tmp_path, capsys):
+    """bench/folder_legs, a folder's untraced passes leg by leg: exit 0 and
+    a last JSON line with each quantity for every pass, under the switch
+    interval asked for; the interpreter's own is restored after."""
+    import json
+    import sys
+
+    from jpeg_encoder_torch.bench import folder_legs
+
+    interval = sys.getswitchinterval()
+    try:
+        assert folder_legs.main(["--files", "3", "--width", "24",
+                                 "--height", "16", "--warm", "1",
+                                 "--passes", "2", "--switch-interval",
+                                 "0.001", "--dir", str(tmp_path),
+                                 "--device", "cpu"]) == 0
+    finally:
+        sys.setswitchinterval(interval)
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    legs = {f"{leg}_cpu_s" for leg in ("compute_leg", "loader", "assembler",
+                                       "emitter", "decoders", "other")}
+    keys = {"wall_s", "decode_s", "assemble_s", "emit_s", "cpu_s",
+            "voluntary_switches", "involuntary_switches"} | legs
+    assert set(line["passes"]) == keys == set(line["median"])
+    assert all(len(v) == 2 for v in line["passes"].values())
+    assert all(w > 0 for w in line["passes"]["wall_s"])
+    # Each leg's threads timed themselves; the parts add up to the whole.
+    for i in range(2):
+        assert all(line["passes"][k][i] >= 0 for k in legs - {"other_cpu_s"})
+        assert line["passes"]["loader_cpu_s"][i] > 0
+        assert line["passes"]["decoders_cpu_s"][i] > 0
+        assert sum(line["passes"][k][i] for k in legs) == pytest.approx(
+            line["passes"]["cpu_s"][i])
+    assert threading.Thread is folder_legs._Timed.__bases__[0]  # restored
+    assert line["switch_interval"] == 0.001 and line["mpix_per_s"] > 0
+    assert line["card"] == "cpu"
+    assert len(list((tmp_path / "bmp_24x16").iterdir())) == 3
+    # --compare pairs runs' lines: a run against itself is lower in none.
+    run = tmp_path / "run.json"
+    run.write_text(json.dumps(line) + "\n")
+    assert folder_legs.main(["--compare", str(run), "--against",
+                             str(run)]) == 0
+    rows = capsys.readouterr().out.strip().splitlines()
+    assert len(rows) == 1 + len(keys)
+    assert all("(+0.00%), lower in 0 of 1 pairs" in r for r in rows
+               if not r.startswith(("voluntary", "involuntary")))
+
+
 # --------------------------------------------------------------------------
 # The card
 # --------------------------------------------------------------------------

@@ -10,7 +10,11 @@ and all 2^24 RGB triples against the oracle; K1 RealDCT, K4 entropy, K3 binDCT, 
 tier K6a/b and K6c exactly, K4 also over restart intervals with
 live_entries, over a batch of images with per-image rows, intervals and
 tables, and over one image's MCU bands with one init_dc vector a row, K6
-also against K1 and K3 on the same blocks; K2 --fast-dct to max
+also against K1 and K3 on the same blocks, K1 and K3 also storing straight
+into the scan entries, the main path's DCT (at 1080p and 4K 4:2:0, 1080p
+4:2:2, 512x512 4:4:4, the quirk 1921x1081 and stacks of 21 x 1080p and 5
+x 4K, against the plain DCT and the marshal, with the graph ms of F1 + K1
+into the entries beside F1 + K1 + the marshal); K2 --fast-dct to max
 |diff| 1 at a mismatch rate below 1e-3, and 5e-4 against K1, at quality
 None and 90, and at quality 100 with every mismatch a float32 rounding
 tie), drives the single-image paths
@@ -81,13 +85,15 @@ stream.encode_paths on the card: every span name of their layers, one
 request a call, every child inside its parent, the counters, and every
 file equal to the untraced run's; it prints the disabled span site's ns
 and traced against untraced request ms. The
-benchmark path runs the four cells of BENCHMARK.json (benchmark/run.py in
-this process: file-1080p-420-single and file-4k-420-single at 100 timed
-requests, folder-1080p-420-stream at 32 BMP files and one timed pass,
-batch-1080p-420-array at 20 timed calls), between a reset and a read of
-the launch counts, and fails unless each exits 0 with every file of
-every run equal to the NumPy oracle's and every metric BENCHMARK.json
-names for it, its per-layer metrics not null. The
+benchmark path runs every cell of BENCHMARK.json (benchmark/run.py in
+this process, at reduced counts by kind: a file cell at 100 timed
+requests, a folder cell at 32 BMP files and one timed pass, a batch cell
+at 20 timed calls of 8 images), between a reset and a read of the launch
+counts, and fails unless each exits 0 with every file of every run equal
+to the NumPy oracle's and every metric BENCHMARK.json names for it, its
+per-layer metrics not null, F1's events in its trace and no kernel of
+the port's under the breakdown's torch-ops row; it prints each cell's
+breakdown an image. The
 staged-read path runs encode_file's staged read (the BMP file's stored
 rows read into the thread's pinned staging buffer, uploaded as they are
 and reordered at the head of the program) over the benchmark's 8 corpus
@@ -498,16 +504,108 @@ def front_phase(cuda, images_1080, images_4k, card) -> float:
     return float(worst)
 
 
-def card_entries(cuda, rgb: np.ndarray, geom) -> torch.Tensor:
-    """(E, 64) scan entries of rgb, from K1 on the card, on the CPU."""
+# The entries phase's geometries: (label, ratio, width, height, images
+# stacked as the batch programs stack them).
+ENTRY_GEOMETRIES = (
+    ("1920x1080 4:2:0", (4, 2, 0), 1920, 1080, 1),
+    ("3840x2160 4:2:0", (4, 2, 0), 3840, 2160, 1),
+    ("1920x1080 4:2:2", (4, 2, 2), 1920, 1080, 1),
+    ("512x512 4:4:4", (4, 4, 4), 512, 512, 1),
+    ("1921x1081 4:2:0", (4, 2, 0), 1921, 1081, 1),
+    ("21 x 1920x1080 4:2:0", (4, 2, 0), 1920, 1080, 21),
+    ("5 x 3840x2160 4:2:0", (4, 2, 0), 3840, 2160, 5),
+)
+
+
+def entries_phase(cuda, rng, images_1080, images_4k, card) -> dict:
+    """K1 and K3 storing straight into the scan entries
+    (kernels/dct.scan_entries, the main path's DCT) against the plain DCT
+    and marshal_scan_inputs on CPU tensors, exactly, on random planes of
+    each ENTRY_GEOMETRIES geometry (the quirk one leaves 272 luma blocks
+    out of its scan): K1 at quality None and 90, K3 bug-parity at None and
+    descaled at 90 (the stacks at None only). Then, on the first 1080p and
+    4K corpus frames, the graph ms (bench/timing.graph_ms) of F1 + K1 into
+    the entries against F1 + K1 + the marshal, in turns (marshal, entries,
+    entries, marshal), both equal. Returns each kernel's max |error|."""
+    from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig
     from jpeg_encoder_torch.kernels import dct as dct_kernel
     from jpeg_encoder_torch.kernels import front as front_kernel
+    from jpeg_encoder_torch.ops import dct as dct_ops
     from jpeg_encoder_torch.ops import entropy as entropy_ops
 
-    coeffs = dct_kernel.real_dct_quant_planes_zigzag(
-        *front_kernel.planes(torch.from_numpy(rgb).to(cuda), geom)
-    )
-    return entropy_ops.marshal_scan_inputs(*coeffs, geom).cpu()
+    real, binary = DctAlgorithm.REAL_DCT, DctAlgorithm.BIN_DCT
+    variants = (("realdct", real, None, False), ("realdct", real, 90, False),
+                ("bindct", binary, None, False), ("bindct", binary, 90, True))
+    worst = {"realdct": 0, "bindct": 0}
+    t0 = time.perf_counter()
+    for label, ratio, width, height, images in ENTRY_GEOMETRIES:
+        geom = EncoderConfig(subsampling_ratio=ratio).geometry(width, height)
+        planes = random_planes(
+            rng, (images * geom.padded_height, geom.padded_width),
+            (images * geom.chroma_height, geom.chroma_width))
+        dev = [p.to(cuda) for p in planes]
+        kept = int((entropy_ops.block_entries(geom, images, cuda) >= 0).sum())
+        ran = []
+        for name, algorithm, quality, descale in variants:
+            if images > 1 and quality is not None:
+                continue
+            got = dct_kernel.scan_entries(*dev, geom, algorithm, quality,
+                                          bin_dct_descale=descale)
+            torch.cuda.synchronize()
+            coeffs = (dct_ops.real_dct_quant_planes_zigzag(*planes, quality)
+                      if algorithm == real else
+                      dct_ops.bin_dct_quant_planes_zigzag(*planes, quality,
+                                                          descale))
+            want = entropy_ops.marshal_scan_inputs(*coeffs, geom)
+            check(got.shape == want.shape,
+                  f"entries {label} {name}: {tuple(got.shape)} vs "
+                  f"{tuple(want.shape)}")
+            err = max_err(got, want)
+            worst[name] = max(worst[name], err)
+            check(err == 0, f"entries {label} {name} q={quality} descale="
+                  f"{descale}: max |err| {err}")
+            ran.append(f"{name} q={quality}{' descale' if descale else ''}")
+        blocks = images * (geom.num_luma_blocks + 2 * geom.num_chroma_blocks)
+        print(f"entries {label}: {', '.join(ran)} into {want.shape[0]} "
+              f"entries ({kept} of {blocks} blocks kept) == plain DCT + "
+              "marshal (exact)", flush=True)
+    print(f"entries phase checks: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for label, rgb in (("1920x1080", next(iter(images_1080.values()))),
+                       ("3840x2160", next(iter(images_4k.values())))):
+        geom = EncoderConfig().geometry(rgb.shape[1], rgb.shape[0])
+        image = timing.resident(rgb, cuda)
+
+        def into_entries():
+            return dct_kernel.scan_entries(*front_kernel.planes(image, geom),
+                                           geom, real)
+
+        def with_marshal():
+            return entropy_ops.marshal_scan_inputs(
+                *dct_kernel.real_dct_quant_planes_zigzag(
+                    *front_kernel.planes(image, geom)), geom)
+
+        check(torch.equal(into_entries(), with_marshal()),
+              f"entries {label}: the two routes differ")
+        m1, e1, e2, m2 = (timing.graph_ms(fn, cuda) for fn in (
+            with_marshal, into_entries, into_entries, with_marshal))
+        print(f"time entries {label} 4:2:0: F1 + K1 into the entries graph "
+              f"{(e1 + e2) / 2:.4f} ms ({e1:.4f}, {e2:.4f}), F1 + K1 + the "
+              f"marshal graph {(m1 + m2) / 2:.4f} ms ({m1:.4f}, {m2:.4f}) "
+              f"({card})", flush=True)
+    return worst
+
+
+def card_entries(cuda, rgb: np.ndarray, geom) -> torch.Tensor:
+    """(E, 64) scan entries of rgb, from F1 and K1 into the entries on the
+    card (the main path's front half), on the CPU."""
+    from jpeg_encoder_torch.config import DctAlgorithm
+    from jpeg_encoder_torch.kernels import dct as dct_kernel
+    from jpeg_encoder_torch.kernels import front as front_kernel
+
+    return dct_kernel.scan_entries(
+        *front_kernel.planes(torch.from_numpy(rgb).to(cuda), geom), geom,
+        DctAlgorithm.REAL_DCT).cpu()
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> int:
@@ -3006,15 +3104,42 @@ def multicard_phase(cuda, images_1080, images_4k, card, tmp) -> dict:
     return counts
 
 
+# The smoke's reduced traffic of each kind of cell (benchmark/cells.py):
+# 100 timed requests of a single-file cell (a p90 needs 100 samples), a
+# folder of 32 BMP files and one timed pass, 20 timed calls of 8 images.
+SMOKE_COUNTS = {
+    "file": dict(requests=100),
+    "folder": dict(files=32, passes=1),
+    "batch": dict(images=8, calls=20),
+}
+
+
+def port_symbols() -> list[str]:
+    """The names of the port's __global__ kernels (jpeg_encoder_torch/csrc):
+    none may be filed under the breakdown's torch-ops row."""
+    import re
+
+    from jpeg_encoder_torch.kernels import _build
+
+    names = []
+    for source in sorted(os.listdir(_build.CSRC)):
+        with open(os.path.join(_build.CSRC, source)) as f:
+            names += re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                r"(\w+)", f.read())
+    check(names, f"no __global__ kernel found in {_build.CSRC}")
+    return names
+
+
 def benchmark_phase(card) -> None:
-    """The benchmark's four cells (benchmark/, BENCHMARK.json) through the
-    runner's on_card in this process, at reduced counts: 100 timed requests
-    of each single-file cell (a p90 needs 100 samples), a folder of 32 BMP
-    files, one timed pass, and 20 timed calls of the batch cell. Each must
-    exit 0 with "correct" true, failed_share 0, every file of every run
-    equal to the oracle's, every metric BENCHMARK.json names for its cell
-    (the per-layer ones, the program's spans' among them, not null), the
-    program's counters, and the card's operations in its trace."""
+    """Every cell of BENCHMARK.json (benchmark/cells.CELLS) through the
+    runner's on_card in this process, at the reduced counts of its kind
+    (SMOKE_COUNTS). Each must exit 0 with "correct" true, failed_share 0,
+    every file of every run equal to the oracle's, every metric
+    BENCHMARK.json names for its cell (the per-layer ones, the program's
+    spans' among them, not null), the program's counters, and the card's
+    operations in its trace: F1's events among them, and no kernel of the
+    port's (port_symbols) filed under the torch-ops row."""
     import contextlib
     import io
 
@@ -3024,20 +3149,18 @@ def benchmark_phase(card) -> None:
 
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         metrics = json.load(f)["metrics"]
-    for cell, counts in (
-            (benchmark_cells.FILE_CELL, benchmark_cells.Counts(requests=100)),
-            (benchmark_cells.FOLDER_CELL,
-             benchmark_cells.Counts(files=32, passes=1)),
-            ("file-4k-420-single", benchmark_cells.Counts(requests=100)),
-            ("batch-1080p-420-array",
-             benchmark_cells.Counts(images=8, calls=20))):
+    symbols = port_symbols()
+    for cell in benchmark_cells.CELLS:
+        counts = benchmark_cells.Counts(
+            **SMOKE_COUNTS[benchmark_cells.TABLE[cell].kind])
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = benchmark_run.on_card(cell, 0, counts)
         text = out.getvalue().strip()
         print(text, flush=True)
-        line = json.loads(text.splitlines()[-1])
+        lines = text.splitlines()
+        line = json.loads(lines[-1])
         check(rc == 0 and line["correct"] is True
               and line["failed_share"] == 0,
               f"benchmark {cell} exited {rc}: {line}")
@@ -3057,8 +3180,24 @@ def benchmark_phase(card) -> None:
               f"benchmark {cell}: counters {line['counters']}")
         check(line["device_busy_ms"] and line["device"]["platform"] == "gpu",
               f"benchmark {cell}: no device operation in its trace: {line}")
-        print(f"benchmark {cell}: exit 0 in {time.perf_counter() - t0:.1f} s "
-              f"({card})", flush=True)
+        breakdown = next(
+            extra["breakdown"] for extra in map(
+                json.loads, (text for text in lines if text.startswith("{")))
+            if "breakdown" in extra)
+        check(breakdown["f1_events"] > 0,
+              f"benchmark {cell}: no F1 event in its trace: {breakdown}")
+        in_torch_ops = [op["name"] for op in breakdown["top_ops"]
+                        if op["label"] == benchmark_trace.TORCH_OPS
+                        and any(name in op["name"] for name in symbols)]
+        check(not in_torch_ops, f"benchmark {cell}: the port's kernels "
+              f"{in_torch_ops} are filed under {benchmark_trace.TORCH_OPS}")
+        rows = {row["label"]: row["ms"] / breakdown["images"]
+                for row in breakdown["by_label"]}
+        print(f"benchmark {cell}: exit 0 in {time.perf_counter() - t0:.1f} s;"
+              f" breakdown ms an image: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in rows.items())
+              + f"; f1_events {breakdown['f1_events']}, k1_events "
+              f"{breakdown['k1_events']} ({card})", flush=True)
 
 
 # The program's span names (jpeg_encoder_torch/trace.py) each entry must
@@ -3461,6 +3600,8 @@ def timing_phase(cuda, images_1080, images_4k, card) -> tuple[dict, ...]:
                 lambda: dct_kernel.real_dct_quant_planes_zigzag(*planes),
             "scan marshal":
                 lambda: entropy_ops.marshal_scan_inputs(*coeffs, geom),
+            "realdct into entries": lambda: dct_kernel.scan_entries(
+                *planes, geom, config.dct_algorithm),
             "entropy kernel":
                 lambda: entropy_kernel.encode_entries(z, geom, cap),
             "encode_core": lambda: pipeline.encode_core(
@@ -3683,6 +3824,11 @@ def main() -> int:
             "K3", dct_kernel.bin_dct_quant_planes_zigzag, cuda, rng,
             [(q, d) for q in (None, 90) for d in (False, True)]),
     }
+    t0 = time.perf_counter()
+    for name, err in entries_phase(cuda, rng, images_1080, images_4k,
+                                   card).items():
+        errors[name] = max(errors[name], float(err))
+    entries_s = time.perf_counter() - t0
     errors["fastdct"] = k2_phase(cuda, rng)
     errors["entropy"] = max(k4_phase(cuda, images_1080),
                             k4_interval_phase(cuda, images_1080),
@@ -3691,7 +3837,7 @@ def main() -> int:
     errors["pack"] = k5_phase(cuda, images_1080)
     errors.update(k6_phase(cuda, rng))
     errors["front"] = front_phase(cuda, images_1080, images_4k, card)
-    phase_s = {}
+    phase_s = {"entries": entries_s}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
         path_counts = [e2e_phase(cuda, images_1080, images_4k, tmp)]

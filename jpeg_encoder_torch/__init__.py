@@ -1,10 +1,11 @@
 """jpeg_encoder_torch: the baseline JPEG encoder on PyTorch and CUDA.
 
 The same encoder as jpeg_encoder_tpu, rebuilt for an NVIDIA Hopper card:
-plain PyTorch ops for the planar stages (colour, pad, subsample, scan
-marshal) and hand-written CUDA kernels for the two heavy stages (the DCT
-variants, kernels/dct.py: exact RealDCT, --fast-dct and binDCT, on three
-planes or on (N, 64) blocks; and the scan encoder, scan.py over
+hand-written CUDA kernels for the front (colour, pad, subsample:
+kernels/front.py) and for the two heavy stages (the DCT variants,
+kernels/dct.py: exact RealDCT, --fast-dct and binDCT, on three planes,
+the exact ones straight into scan order, or on (N, 64) blocks; and the
+scan encoder, scan.py over
 kernels/entropy.py and kernels/pack.py, for the unbroken scan or restart
 intervals, with Annex-K or per-image optimal Huffman tables). Entry
 points (pipeline.encode_array, encode_file, parallel.batch.encode_batch)

@@ -2,8 +2,8 @@
 
     python -m jpeg_encoder_torch.bench [--device cuda|cpu] [--min-seconds S]
 
-Times parallel/batch.dispatch_uploaded (the front, K1, the scan marshal and
-K4; nothing fetched) on a batch of 8 corpus frames of 1088x1920 at 4:2:0
+Times parallel/batch.dispatch_uploaded (the front, K1 into the scan
+entries and K4; nothing fetched) on a batch of 8 corpus frames of 1088x1920 at 4:2:0
 with RealDCT, uploaded once and resident on the card: the counterpart of
 bench.py's vmapped encode_core, in Mpixel/s of input pixels, by the window
 timer (bench/timing.py). The call runs the chunk's program as a replayed

@@ -7,8 +7,10 @@ tools/time_kernel_only.py and tools/profile_stages.py for the port.
 Operands: one corpus frame (landscape) at 1920x1080 4:2:0, through the
 front (F1), K1 and the scan marshal, as chip_smoke.py's timing phase
 builds them. Each kernel is timed alone on them by graph_ms
-(bench/timing.py): F1 front on the frame; K1 realdct, K2 fastdct, K3
-bindct on the three planes; K4 entropy on the unbroken scan; K5 pack on the
+(bench/timing.py): F1 front on the frame; K1 realdct and K3 bindct on the
+three planes into the scan entries (dct.scan_entries, as the main path
+runs them), K2 fastdct on the three planes (raster order: the marshal
+follows it); K4 entropy on the unbroken scan; K5 pack on the
 assemble tier's rows at restart 120; K6a/b realdct_blocks and K6c
 bindct_blocks on the Y blocks; and torch.matmul, K2's product alone, as
 its yardstick. Beside each: its bound (the larger of its bytes once over
@@ -16,8 +18,8 @@ the card's memory rate and its operations over their peak; kernel_bounds)
 and, with --launches (a JSON object of kernel name -> launches on the main
 paths, as chip_smoke.py counts them), launches x (graph ms - bound), by
 which the table is ranked. Then the stage map: the plain front (its torch
-ops, ops/front.py) and F1, K1, the marshal, K4 and encode_core as a
-whole, each by graph_ms (encode_core, not the capacity ladder, which
+ops, ops/front.py) and F1, K1 in raster order, the marshal, K1 into the
+entries, K4 and encode_core as a whole, each by graph_ms (encode_core, not the capacity ladder, which
 reads the card); beside them encode_array's
 device program (pipeline.scan_program through graphs.run, on the resident
 frame) by the window timer on the card's events, replayed and eager
@@ -38,7 +40,7 @@ import torch
 
 from jpeg_encoder_torch import graphs, pipeline, scan
 from jpeg_encoder_torch.bench import timing
-from jpeg_encoder_torch.config import EncoderConfig, FrameGeometry
+from jpeg_encoder_torch.config import DctAlgorithm, EncoderConfig, FrameGeometry
 from jpeg_encoder_torch.kernels import dct as dct_kernel
 from jpeg_encoder_torch.kernels import entropy as entropy_kernel
 from jpeg_encoder_torch.kernels import front as front_kernel
@@ -104,9 +106,12 @@ def front_bound(geom, images: int = 1, rows: bool = False) -> tuple:
 
 def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
     """Each kernel's bound on the operands it is timed on (every input
-    byte read once, every output byte written once)."""
+    byte read once, every output byte written once). K1 and K3 into the
+    entries read the planes and a 4-byte entry index a block and write
+    the (E, 64) int16 entries; K2 writes every block's row."""
     n = sum(p.numel() for p in planes) // 64
     plane_bytes = sum(p.numel() for p in planes) + n * 64 * 2
+    entry_bytes = sum(p.numel() for p in planes) + n * 4 + z.numel() * 2
     n_y = y_blocks.shape[0]
     epi = entropy_ops.entries_per_interval(geom, PACK_RESTART)
     rows = -(-geom.num_scan_entries // epi)
@@ -116,10 +121,10 @@ def kernel_bounds(geom, planes, z, cap, y_blocks) -> dict[str, tuple]:
     pack_row_bits = scan.assemble_operands(slot_bits, slot_lens, epi)[2]
     return {
         "front": front_bound(geom),
-        "realdct": bound(plane_bytes, n * REALDCT_BLOCK_OPS, FP32_ISSUE_OPS),
+        "realdct": bound(entry_bytes, n * REALDCT_BLOCK_OPS, FP32_ISSUE_OPS),
         "fastdct": bound(plane_bytes, n * FAST_BLOCK_FLOPS,
                          BF16_TENSOR_FLOPS),
-        "bindct": bound(plane_bytes, n * BINDCT_BLOCK_OPS, INT32_OPS),
+        "bindct": bound(entry_bytes, n * BINDCT_BLOCK_OPS, INT32_OPS),
         # z in, the two (2, 256) tables, one row of cap bytes and its count.
         "entropy": bound(z.numel() * 2 + 4096 + cap + 4),
         # K5 at restart 120: 8 bytes of offset an entry and the live words
@@ -171,15 +176,16 @@ def kernel_calls(ops: Operands) -> list[tuple]:
     p, blocks = ops.planes, ops.y_blocks
     words, offsets, cap120 = ops.pack
     part = functools.partial
+    real, binary = DctAlgorithm.REAL_DCT, DctAlgorithm.BIN_DCT
     return [
         ("front", part(front_kernel.planes, ops.rgb, ops.geom),
          part(front_ops.planes, ops.rgb, ops.geom)),
-        ("realdct", part(dct_kernel.real_dct_quant_planes_zigzag, *p),
-         part(dct_ops.real_dct_quant_planes_zigzag, *p)),
+        ("realdct", part(dct_kernel.scan_entries, *p, ops.geom, real),
+         part(dct_kernel.plain_scan_entries, *p, ops.geom, real)),
         ("fastdct", part(dct_kernel.real_dct_fast_planes_zigzag, *p),
          part(dct_ops.real_dct_fast_planes_zigzag, *p)),
-        ("bindct", part(dct_kernel.bin_dct_quant_planes_zigzag, *p),
-         part(dct_ops.bin_dct_quant_planes_zigzag, *p)),
+        ("bindct", part(dct_kernel.scan_entries, *p, ops.geom, binary),
+         part(dct_kernel.plain_scan_entries, *p, ops.geom, binary)),
         ("entropy", part(entropy_kernel.encode_entries, ops.z, ops.geom,
                          ops.cap),
          part(entropy_ops.encode_entries, ops.z, ops.geom, ops.cap)),
@@ -213,6 +219,8 @@ def stage_calls(ops: Operands) -> dict:
             dct_kernel.real_dct_quant_planes_zigzag, *planes),
         "scan marshal": functools.partial(entropy_ops.marshal_scan_inputs,
                                           *ops.coeffs, geom),
+        "realdct into entries": functools.partial(
+            dct_kernel.scan_entries, *planes, geom, DctAlgorithm.REAL_DCT),
         "entropy kernel": functools.partial(entropy_kernel.encode_entries,
                                             ops.z, geom, ops.cap),
         "encode_core": lambda: pipeline.encode_core(

@@ -7,8 +7,8 @@ tools/bench_cell.py for the port.
 
 The matrix times the 3 subsampling ratios x {RealDCT, binDCT} on a batch of
 8 corpus frames of 1088x1920 resident on the card, each through
-parallel/batch.dispatch_uploaded (front, DCT kernel, marshal, K4; nothing
-fetched) by the window timer, in Mpixel/s. --cell times one configuration:
+parallel/batch.dispatch_uploaded (front, DCT kernel into the entries,
+K4; nothing fetched) by the window timer, in Mpixel/s. --cell times one configuration:
 restart=N codes every N-MCU restart interval into its own row, fast runs
 --fast-dct (K2), and optimize reports two numbers, as bench_cell.py does:
 the two-pass cost (the statistics pass on the resident batch,

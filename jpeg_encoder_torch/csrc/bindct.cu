@@ -30,9 +30,15 @@
 // (rows of 9 words: no bank conflicts), so that each thread then holds one
 // column, runs the column lift and quantizes its 8 coefficients. They go to
 // their zigzag places in a shared staging slab, from where the CTA (32
-// blocks) writes its contiguous (32, 64) int16 rows with one 16-byte store a
-// thread. A thread holds 8 values, not 64: under 30 registers, and a 1080p
-// frame is 391,680 threads, enough to fill the card.
+// blocks) writes its (32, 64) int16 rows with one 16-byte store a thread.
+// A thread holds 8 values, not 64: under 30 registers, and a 1080p frame is
+// 391,680 threads, enough to fill the card.
+//
+// Where each row goes, as in K1 (realdct.cu): with a null destination
+// table, block n's row is row n (raster order, one contiguous slab a CTA);
+// with a table (ops/entropy.block_entries) it is scan entry dst[n] of the
+// (E, 64) entries, none where dst[n] is -1. Eight threads still store one
+// 128-byte row, so every store stays a whole 128-byte piece.
 //
 // What bounds it on Hopper: bytes. A block reads 64 bytes and writes 128
 // (9.4 MB at 1920x1080 4:2:0, under 3 us at 3.35 TB/s); its integer work (16
@@ -160,6 +166,7 @@ bindct_planes_kernel(const uint8_t* __restrict__ y, int y_width, int ny,
                      const int* __restrict__ q_chroma,
                      const float* __restrict__ gains,
                      const int* __restrict__ divisors,
+                     const int* __restrict__ dst,
                      int16_t* __restrict__ out) {
   __shared__ QuantShared qs;
   __shared__ int xpose[kBlocks * kBlockWords];
@@ -206,11 +213,14 @@ bindct_planes_kernel(const uint8_t* __restrict__ y, int y_width, int ny,
     stage[b][qs.zz[nat]] = static_cast<int16_t>(c);
   }
   __syncthreads();
-  // The CTA's blocks are consecutive output rows: one contiguous slab of
-  // 32 rows of 128 bytes, one 16-byte store a thread.
-  if (n0 + (threadIdx.x >> 3) < n_total) {
-    reinterpret_cast<uint4*>(out + static_cast<size_t>(n0) * 64)[threadIdx.x] =
-        reinterpret_cast<const uint4*>(stage)[threadIdx.x];
+  // Thread t stores 16-byte piece t % 8 of block n's row (b = t / 8): 32
+  // rows of 128 bytes, one store a thread.
+  if (n < n_total) {
+    const int row = dst == nullptr ? n : dst[n];
+    if (row >= 0) {
+      reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * 64)[r] =
+          reinterpret_cast<const uint4*>(stage)[threadIdx.x];
+    }
   }
 }
 
@@ -262,15 +272,16 @@ bindct_blocks_kernel(const uint8_t* __restrict__ blocks, int n_blocks,
 // wide), all padded to multiples of 8 and 8-byte aligned. q_luma, q_chroma:
 // (64,) int32 zigzag quantization rows; gains: (64,) f32 zigzag descale gains
 // (read only when descale is 1); divisors: (2, 64, 2) int32 magic numbers
-// and shifts of the luma and chroma rows (constants.bindct_divisors). out:
-// (ny + 2 nc, 64) int16, zigzag, 16-byte aligned. Returns the launch's
-// cudaError_t (0 on success).
+// and shifts of the luma and chroma rows (constants.bindct_divisors). dst:
+// null, or (ny + 2 nc,) int32, each block's row of out (-1: not written).
+// out: (ny + 2 nc, 64) int16, or with dst as many rows as dst names,
+// zigzag, 16-byte aligned. Returns the launch's cudaError_t (0 on success).
 extern "C" int jt_bindct_planes(const uint8_t* y, int y_width, int ny,
                                 const uint8_t* cb, const uint8_t* cr,
                                 int c_width, int nc, const int* q_luma,
                                 const int* q_chroma, const float* gains,
                                 const int* divisors, int descale,
-                                int16_t* out, void* stream) {
+                                const int* dst, int16_t* out, void* stream) {
   const int n_total = ny + 2 * nc;
   if (n_total == 0) return 0;
   const int grid = (n_total + kBlocks - 1) / kBlocks;
@@ -278,11 +289,11 @@ extern "C" int jt_bindct_planes(const uint8_t* y, int y_width, int ny,
   if (descale) {
     bindct_planes_kernel<true><<<grid, kThreads, 0, st>>>(
         y, y_width, ny, cb, cr, c_width, nc, q_luma, q_chroma, gains,
-        divisors, out);
+        divisors, dst, out);
   } else {
     bindct_planes_kernel<false><<<grid, kThreads, 0, st>>>(
         y, y_width, ny, cb, cr, c_width, nc, q_luma, q_chroma, gains,
-        divisors, out);
+        divisors, dst, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

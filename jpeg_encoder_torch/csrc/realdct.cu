@@ -47,6 +47,17 @@
 // position hit different banks) and written out coalesced, 128 bytes a
 // block.
 //
+// Where each row goes. With a null destination table the kernel writes
+// block n's row to row n of an (ny + 2 nc, 64) tensor (raster order: the
+// per-plane coefficients). With a table (ops/entropy.block_entries: one
+// int32 a block, its scan entry, or -1 for a block no entry takes) it
+// writes row n to entry dst[n] of the (E, 64) scan entries, the
+// interleaved MCU order the entropy coder reads, so that no gather of the
+// coefficients into scan order runs after it. Each row stays one 128-byte
+// piece of 8 x 16 bytes (an entry is 128-byte aligned), and a -1 row is not
+// written; the table costs 4 bytes a block against the 64 read and 128
+// written, and the arithmetic is the same in both modes.
+//
 // The per-block tier (kernel K6a, jt_realdct_blocks) replaces
 // dct_pallas.py::real_dct_quant_zigzag_pallas (body _realdct_kernel) and
 // its transposed forms real_dct_quant_zigzag_pallas_t (K6b: the same
@@ -168,15 +179,22 @@ __device__ __forceinline__ void dct_quant_group(const float* px, int u, int b,
   }
 }
 
-// Copy count staged rows (64 Out each) to out, 16 bytes a thread.
+// Copy count staged rows (64 Out each), those of blocks n0 .., to out, 16
+// bytes a thread: block n's row to row n, or with a table to row dst[n]
+// (none where dst[n] < 0).
 template <typename Out>
 __device__ __forceinline__ void store_rows(const Staged<Out>& staged,
-                                           int count, Out* __restrict__ out) {
+                                           int count, int n0,
+                                           const int* __restrict__ dst,
+                                           Out* __restrict__ out) {
   constexpr int kPieces = 64 * sizeof(Out) / 16;  // 16-byte pieces a row
-  uint4* dst = reinterpret_cast<uint4*>(out);
   for (int i = threadIdx.x; i < count * kPieces; i += kThreads) {
-    dst[i] = reinterpret_cast<const uint4*>(staged.rows[i / kPieces])
-        [i % kPieces];
+    const int b = i / kPieces;
+    const int row = dst == nullptr ? n0 + b : dst[n0 + b];
+    if (row < 0) continue;
+    reinterpret_cast<uint4*>(out + static_cast<size_t>(row) * 64)
+        [i % kPieces] =
+        reinterpret_cast<const uint4*>(staged.rows[b])[i % kPieces];
   }
 }
 
@@ -185,6 +203,7 @@ realdct_planes_kernel(const uint8_t* __restrict__ y, int y_width, int ny,
                       const uint8_t* __restrict__ cb,
                       const uint8_t* __restrict__ cr, int c_width, int nc,
                       const __grid_constant__ RealDctParams p,
+                      const int* __restrict__ dst,
                       int16_t* __restrict__ out) {
   __shared__ __align__(16) float px[kGroup][kPxStride];
   __shared__ __align__(16) Staged<int16_t> staged;
@@ -225,7 +244,7 @@ realdct_planes_kernel(const uint8_t* __restrict__ y, int y_width, int ny,
     dct_quant_group(px[b], threadIdx.x >> 5, b, n0 + b < ny, p, staged);
   }
   __syncthreads();
-  store_rows(staged, count, out + static_cast<size_t>(n0) * 64);
+  store_rows(staged, count, n0, dst, out);
 }
 
 // K6a/b: the same chains over (n, 64) contiguous blocks, one q row.
@@ -254,7 +273,7 @@ realdct_blocks_kernel(const uint8_t* __restrict__ blocks, int n, int q_row,
     dct_quant_group(px[b], threadIdx.x >> 5, b, q_row == 0, p, staged);
   }
   __syncthreads();
-  store_rows(staged, count, out + static_cast<size_t>(n0) * 64);
+  store_rows(staged, count, n0, nullptr, out);
 }
 
 RealDctParams make_params(const float* basis, const float* scale,
@@ -275,20 +294,22 @@ RealDctParams make_params(const float* basis, const float* scale,
 // wide), all padded to multiples of 8 and 8-byte aligned. Operands, in HOST
 // memory (copied into the kernel's parameters at launch): basis (8, 8) f32,
 // scale, q_luma, q_chroma (64,) f32 in natural order, zigzag (64,) int32.
-// out: (ny + 2 nc, 64) int16, zigzag, 16-byte aligned. Returns the launch's
-// cudaError_t (0 on success).
+// dst: null, or (ny + 2 nc,) int32 on the card, each block's row of out
+// (-1: not written). out: (ny + 2 nc, 64) int16, or with dst as many rows as
+// dst names, zigzag, 16-byte aligned. Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int jt_realdct_planes(const uint8_t* y, int y_width, int ny,
                                  const uint8_t* cb, const uint8_t* cr,
                                  int c_width, int nc, const float* basis,
                                  const float* scale, const float* q_luma,
                                  const float* q_chroma, const int* zigzag,
-                                 int16_t* out, void* stream) {
+                                 const int* dst, int16_t* out, void* stream) {
   const int n_total = ny + 2 * nc;
   if (n_total == 0) return 0;
   realdct_planes_kernel<<<(n_total + kGroup - 1) / kGroup, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       y, y_width, ny, cb, cr, c_width, nc,
-      make_params(basis, scale, q_luma, q_chroma, zigzag), out);
+      make_params(basis, scale, q_luma, q_chroma, zigzag), dst, out);
   return static_cast<int>(cudaGetLastError());
 }
 

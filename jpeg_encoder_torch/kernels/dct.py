@@ -19,6 +19,12 @@ kernel's spec. The plane kernels take three padded uint8 planes [Y, Cb,
 Cr] and return (N_i, 64) int16 zigzag coefficients, on CUDA as row views of
 one (N, 64) tensor; the per-block ones take (N, 64) uint8 blocks and
 is_luma and return (N, 64) int32.
+
+scan_entries runs K1 or K3 straight into the scan: each block's zigzag row
+goes to its scan entry (ops/entropy.block_entries), so the (E, 64) entries
+the entropy coder reads come out of the DCT's own stores, with no gather
+after it (its plain version: the plain DCT, then a scatter of the rows by
+the same table).
 """
 
 from __future__ import annotations
@@ -28,15 +34,18 @@ import ctypes
 import torch
 
 from jpeg_encoder_torch import constants
+from jpeg_encoder_torch.config import DctAlgorithm, FrameGeometry
 from jpeg_encoder_torch.kernels._build import Kernel
 from jpeg_encoder_torch.ops import dct as dct_ops
+from jpeg_encoder_torch.ops import entropy as entropy_ops
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # K1's operands are host pointers (constants.realdct_kernel_operands),
-# copied into the kernel's by-value parameters at launch.
+# copied into the kernel's by-value parameters at launch. K1 and K3 take a
+# destination table (null: raster order) before their output.
 REALDCT = Kernel(
-    "realdct", "jt_realdct_planes", (_P, _I, _I, _P, _P, _I, _I) + (_P,) * 7,
+    "realdct", "jt_realdct_planes", (_P, _I, _I, _P, _P, _I, _I) + (_P,) * 8,
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:362",
 )
 FASTDCT = Kernel(
@@ -45,7 +54,7 @@ FASTDCT = Kernel(
 )
 BINDCT = Kernel(
     "bindct", "jt_bindct_planes",
-    (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P),
+    (_P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P),
     replaces="jpeg_encoder_tpu/kernels/dct_pallas.py:568",
 )
 # K6a (:80); K6b (dct_pallas.py:156) computes the same function.
@@ -84,19 +93,26 @@ def _check_planes(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {y.device}")
 
 
+def _launch_into(kernel: Kernel, y_plane, cb_plane, cr_plane, operands,
+                 out: torch.Tensor) -> None:
+    """Launch a 3-plane DCT kernel on the planes with `operands` into out."""
+    device = y_plane.device
+    with torch.cuda.device(device):
+        kernel.launch(
+            y_plane.data_ptr(), y_plane.shape[1], y_plane.numel() // 64,
+            cb_plane.data_ptr(), cr_plane.data_ptr(), cb_plane.shape[1],
+            cb_plane.numel() // 64, *operands, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+
+
 def _launch(kernel: Kernel, y_plane, cb_plane, cr_plane, *operands):
     """Launch a 3-plane DCT kernel into a fresh (N, 64) int16 tensor and
     return its [Y, Cb, Cr] row views."""
-    device = y_plane.device
     ny, nc = y_plane.numel() // 64, cb_plane.numel() // 64
-    out = torch.empty((ny + 2 * nc, 64), dtype=torch.int16, device=device)
-    with torch.cuda.device(device):
-        kernel.launch(
-            y_plane.data_ptr(), y_plane.shape[1], ny,
-            cb_plane.data_ptr(), cr_plane.data_ptr(), cb_plane.shape[1], nc,
-            *operands, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+    out = torch.empty((ny + 2 * nc, 64), dtype=torch.int16,
+                      device=y_plane.device)
+    _launch_into(kernel, y_plane, cb_plane, cr_plane, operands, out)
     return out[:ny], out[ny : ny + nc], out[ny + nc :]
 
 
@@ -122,7 +138,7 @@ def real_dct_quant_planes_zigzag(
             y_plane, cb_plane, cr_plane, quality
         )
     return _launch(
-        REALDCT, y_plane, cb_plane, cr_plane, *_realdct_operands(quality)
+        REALDCT, y_plane, cb_plane, cr_plane, *_realdct_operands(quality), None
     )
 
 
@@ -163,15 +179,94 @@ def bin_dct_quant_planes_zigzag(
         return dct_ops.bin_dct_quant_planes_zigzag(
             y_plane, cb_plane, cr_plane, quality, descale
         )
-    q_luma, q_chroma, gains = dct_ops.bindct_device_constants(
-        quality, y_plane.device
-    )
-    divisors = dct_ops.bindct_divisors_device_constant(quality, y_plane.device)
     return _launch(
         BINDCT, y_plane, cb_plane, cr_plane,
-        q_luma.data_ptr(), q_chroma.data_ptr(), gains.data_ptr(),
-        divisors.data_ptr(), int(descale),
+        *_bindct_operands(quality, descale, y_plane.device), None,
     )
+
+
+def _bindct_operands(quality: int | None, descale: bool,
+                     device: torch.device) -> tuple[int, ...]:
+    """K3's device operands' addresses (the operand caches keep them) and
+    its quantization mode."""
+    q_luma, q_chroma, gains = dct_ops.bindct_device_constants(quality, device)
+    divisors = dct_ops.bindct_divisors_device_constant(quality, device)
+    return (q_luma.data_ptr(), q_chroma.data_ptr(), gains.data_ptr(),
+            divisors.data_ptr(), int(descale))
+
+
+def _images(y_plane, cb_plane, geom: FrameGeometry) -> int:
+    """The number of stacked images of geom in the planes."""
+    ny, nc = y_plane.numel() // 64, cb_plane.numel() // 64
+    batch, rest = divmod(ny, geom.num_luma_blocks)
+    if rest or nc != batch * geom.num_chroma_blocks or not batch:
+        raise ValueError(
+            f"planes of {ny} luma and {nc} chroma blocks are not whole "
+            f"images of {geom.width}x{geom.height}"
+        )
+    return batch
+
+
+def scan_entries(
+    y_plane: torch.Tensor,
+    cb_plane: torch.Tensor,
+    cr_plane: torch.Tensor,
+    geom: FrameGeometry,
+    algorithm: DctAlgorithm,
+    quality: int | None = None,
+    *,
+    bin_dct_descale: bool = False,
+) -> torch.Tensor:
+    """K1 (RealDCT) or K3 (binDCT) into the scan: the padded planes of B
+    stacked images of geom -> their (B * E, 64) int16 zigzag scan entries,
+    equal to ops/entropy.marshal_scan_inputs of the plane kernel's
+    coefficients.
+
+    On the card the kernel writes each block's row straight to its entry
+    (ops/entropy.block_entries); the entries need no memset, since the
+    table names every entry once. On the CPU: the plain DCT, then
+    ops/entropy.scatter_entries by the same table (plain_scan_entries).
+    """
+    _check_planes(y_plane, cb_plane, cr_plane)
+    batch = _images(y_plane, cb_plane, geom)
+    if y_plane.device.type == "cpu":
+        return plain_scan_entries(y_plane, cb_plane, cr_plane, geom,
+                                  algorithm, quality,
+                                  bin_dct_descale=bin_dct_descale)
+    device = y_plane.device
+    if algorithm == DctAlgorithm.REAL_DCT:
+        kernel, operands = REALDCT, _realdct_operands(quality)
+    else:
+        kernel = BINDCT
+        operands = _bindct_operands(quality, bin_dct_descale, device)
+    table = entropy_ops.block_entries(geom, batch, device)
+    out = torch.empty((batch * geom.num_scan_entries, 64), dtype=torch.int16,
+                      device=device)
+    _launch_into(kernel, y_plane, cb_plane, cr_plane,
+                 (*operands, table.data_ptr()), out)
+    return out
+
+
+def plain_scan_entries(
+    y_plane: torch.Tensor,
+    cb_plane: torch.Tensor,
+    cr_plane: torch.Tensor,
+    geom: FrameGeometry,
+    algorithm: DctAlgorithm,
+    quality: int | None = None,
+    *,
+    bin_dct_descale: bool = False,
+) -> torch.Tensor:
+    """scan_entries' plain version, on any device: the plain DCT
+    (ops/dct.py), its rows scattered to their entries."""
+    if algorithm == DctAlgorithm.REAL_DCT:
+        coeffs = dct_ops.real_dct_quant_planes_zigzag(
+            y_plane, cb_plane, cr_plane, quality)
+    else:
+        coeffs = dct_ops.bin_dct_quant_planes_zigzag(
+            y_plane, cb_plane, cr_plane, quality, bin_dct_descale)
+    return entropy_ops.scatter_entries(
+        torch.cat(coeffs), geom, _images(y_plane, cb_plane, geom))
 
 
 def _check_blocks(blocks: torch.Tensor) -> None:

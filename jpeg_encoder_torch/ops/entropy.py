@@ -6,8 +6,9 @@ blocks through three running DC predictors and one append-only bit vector
 (entropy_coding.rs:16-124); here every slot of every block knows on its
 own what it emits:
 
-1. scan entries: the coefficient blocks gathered into interleaved MCU order
-   (scan_layout / marshal_scan_inputs), raw DC in slot 0;
+1. scan entries: the coefficient blocks in interleaved MCU order
+   (scan_layout; gathered by marshal_scan_inputs, or stored there by the
+   DCT kernels through block_entries), raw DC in slot 0;
 2. DC differences: each entry minus the previous entry of its component,
    found at a static scan distance, with the predictor reset to 0 at every
    restart interval's first entry;
@@ -108,14 +109,11 @@ def scan_layout(geom: FrameGeometry) -> ScanLayout:
     )
 
 
-@graphs.operand_cache(maxsize=64)
-def _entry_rows(
-    geom: FrameGeometry, batch: int, device: torch.device
-) -> torch.Tensor:
-    """Rows into [all Y | all Cb | all Cr] of `batch` images' blocks, image
-    by image: image b's luma rows move by b * ny, its Cb rows by
-    (B - 1) * ny + b * nc and its Cr rows by (B - 1) * (ny + nc) + b * nc
-    from one image's entry_row."""
+def _batch_entry_rows(geom: FrameGeometry, batch: int) -> np.ndarray:
+    """(B * E,) int64 rows into [all Y | all Cb | all Cr] of `batch`
+    images' blocks, image by image: image b's luma rows move by b * ny, its
+    Cb rows by (B - 1) * ny + b * nc and its Cr rows by (B - 1) * (ny + nc)
+    + b * nc from one image's entry_row."""
     row = scan_layout(geom).entry_row.astype(np.int64)
     ny, nc = geom.num_luma_blocks, geom.num_chroma_blocks
     hv = geom.h_factor * geom.v_factor
@@ -126,7 +124,64 @@ def _entry_rows(
         np.where(slot == hv, (batch - 1) * ny + b * nc,
                  (batch - 1) * (ny + nc) + b * nc),
     )
-    return torch.from_numpy((row + shift).reshape(-1)).to(device)
+    return (row + shift).reshape(-1)
+
+
+@graphs.operand_cache(maxsize=64)
+def _entry_rows(
+    geom: FrameGeometry, batch: int, device: torch.device
+) -> torch.Tensor:
+    """_batch_entry_rows on device: the marshal's gather indices."""
+    return torch.from_numpy(_batch_entry_rows(geom, batch)).to(device)
+
+
+@graphs.operand_cache(maxsize=64)
+def block_entries(
+    geom: FrameGeometry, batch: int, device: torch.device
+) -> torch.Tensor:
+    """The inverse of _entry_rows: (B * (ny + 2 nc),) int32 over [all Y |
+    all Cb | all Cr] of `batch` stacked images' blocks, each block's index
+    in the B images' (B * E, 64) scan entries, or -1 for a block that no
+    entry takes (the quirk geometries' luma superblocks past the
+    chroma-driven MCU count, which oracle.luma_scan_order never emits).
+    Every entry is named exactly once. The DCT kernels store through it
+    (kernels/dct.scan_entries); inside graphs.pinned() a capture keeps the
+    very table its warm-up got."""
+    rows = _batch_entry_rows(geom, batch)
+    table = np.full(
+        batch * (geom.num_luma_blocks + 2 * geom.num_chroma_blocks), -1,
+        np.int32)
+    table[rows] = np.arange(rows.size, dtype=np.int32)
+    return torch.from_numpy(table).to(device)
+
+
+def scatter_entries(
+    coeffs: torch.Tensor, geom: FrameGeometry, batch: int
+) -> torch.Tensor:
+    """(B * (ny + 2 nc), 64) coefficients [all Y | all Cb | all Cr] of B
+    stacked images -> their (B * E, 64) scan entries, each row written to
+    its entry by block_entries (the plain version of the DCT kernels'
+    indexed store); equal to marshal_scan_inputs of the three parts."""
+    table = block_entries(geom, batch, coeffs.device)
+    kept = table >= 0
+    out = coeffs.new_empty((batch * geom.num_scan_entries, 64))
+    return out.index_copy_(0, table[kept].to(torch.int64), coeffs[kept])
+
+
+def _rows_of_one_tensor(y_coeffs, cb_coeffs, cr_coeffs) -> torch.Tensor | None:
+    """The (N, 64) tensor whose consecutive row views the three arrays are
+    (as the plane DCT kernels return them, kernels/dct.py), else None."""
+    parts = (y_coeffs, cb_coeffs, cr_coeffs)
+    storage = y_coeffs.untyped_storage().data_ptr()
+    if not all(t.is_contiguous() and t.dim() == 2 and t.dtype == y_coeffs.dtype
+               and t.untyped_storage().data_ptr() == storage for t in parts):
+        return None
+    if (cb_coeffs.data_ptr() != y_coeffs.data_ptr() + y_coeffs.nbytes
+            or cr_coeffs.data_ptr() != cb_coeffs.data_ptr() + cb_coeffs.nbytes):
+        return None
+    rows = sum(t.shape[0] for t in parts)
+    return y_coeffs.as_strided((rows, y_coeffs.shape[1]),
+                               (y_coeffs.shape[1], 1))
 
 
 def marshal_scan_inputs(
@@ -141,7 +196,14 @@ def marshal_scan_inputs(
     (zigzag when the DCT emitted zigzag) are kept, and slot 0 holds each
     block's raw DC. The arrays may hold B images' blocks, image by image
     (B * ny luma rows, B * nc of each chroma): the result is then the B
-    images' (E, 64) entries one after another.
+    images' (E, 64) entries one after another. Arrays that are consecutive
+    row views of one tensor (the plane DCT kernels' output) are gathered
+    from it, without a copy into one first.
+
+    The main path does not run it for RealDCT and binDCT: there the DCT
+    kernels store their rows straight into the entries
+    (kernels/dct.scan_entries). It is their spec, and the route of
+    --fast-dct and of the callers that keep the per-plane coefficients.
     """
     batch, rest = divmod(y_coeffs.shape[0], geom.num_luma_blocks)
     if rest or cb_coeffs.shape[0] != batch * geom.num_chroma_blocks:
@@ -150,7 +212,9 @@ def marshal_scan_inputs(
             f"{cb_coeffs.shape[0]} chroma blocks are not whole images of "
             f"{geom.width}x{geom.height}"
         )
-    allc = torch.cat([y_coeffs, cb_coeffs, cr_coeffs])
+    allc = _rows_of_one_tensor(y_coeffs, cb_coeffs, cr_coeffs)
+    if allc is None:
+        allc = torch.cat([y_coeffs, cb_coeffs, cr_coeffs])
     return allc.index_select(0, _entry_rows(geom, batch, allc.device))
 
 
@@ -177,6 +241,13 @@ def final_dc(
         cb_coeffs[(band + 1) * nc - 1, 0],
         cr_coeffs[(band + 1) * nc - 1, 0],
     ], dim=1).to(torch.int32)
+
+
+def final_dc_of_entries(z: torch.Tensor, geom: FrameGeometry) -> torch.Tensor:
+    """final_dc read from B stacked images' (B * E, 64) scan entries: each
+    image's last MCU ends in its last Y, Cb and Cr entries, whose slot 0 is
+    the raw DC of each chain's last block."""
+    return z.reshape(-1, geom.num_scan_entries, 64)[:, -3:, 0].to(torch.int32)
 
 
 def interval_rows(

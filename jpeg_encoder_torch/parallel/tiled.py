@@ -17,8 +17,8 @@ leading dimension of one launch of each kernel on its device:
   band_h rows (the stack geometry);
 * the unbroken scan: K4 codes a run's stack in one launch as rows of one
   band's entries, row r seeded with the final DCs of the band before
-  (ops/entropy.final_dc over the stack, on the device; zeros for the
-  image's first band). The last band of a run hands its final DCs to the
+  (ops/entropy.final_dc_of_entries over the stack's entries, on the
+  device; zeros for the image's first band). The last band of a run hands its final DCs to the
   next run's device: the ppermute's one hop, a (1, 3) copy on the sending
   run's stream, awaited by the receiving run's stream (devices.send). The
   run's live entry count makes the padding bands' entries emit nothing
@@ -423,7 +423,7 @@ def band_front(
     its rows at or past the image height zeroed in the Y, Cb and Cr
     planes. -> (the stack's (count * E_band, 64) scan entries, band after
     band; (count, 3) int32 final DC predictors of each band,
-    ops/entropy.final_dc). Only those image rows go up, through
+    ops/entropy.final_dc_of_entries). Only those image rows go up, through
     pipeline.upload (on a card the calling thread's pinned ring)."""
     band_geom = _band_geometry(geom, band_rows * 8 * geom.v_factor)
     top = first * band_geom.height
@@ -454,12 +454,12 @@ def stack_front(
     band_h = band_geom.height
 
     def program(rgb):
-        z, coeffs = pipeline.scan_entries(
+        z, _ = pipeline.scan_entries(
             rgb.reshape(count, band_h, width, 3), band_geom,
             config.dct_algorithm, config.quality, fast_dct=config.fast_dct,
             bin_dct_descale=config.bin_dct_descale, live_rows=rows,
         )
-        return z, entropy_ops.final_dc(*coeffs, band_geom)
+        return z, entropy_ops.final_dc_of_entries(z, band_geom)
 
     key = ("band_front", band_geom, first, count, rows,
            *pipeline.dct_key(config))

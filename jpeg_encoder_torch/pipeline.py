@@ -7,8 +7,10 @@ Huffman tables (stats_core, then custom_core), alone and combined.
 The front (colour, padding, subsampling: kernels/front.py), the DCT and
 the scan encoder are kernels (kernels/dct.py, kernels/entropy.py,
 kernels/pack.py through scan.py), which run their CUDA code on CUDA
-tensors and their plain PyTorch versions on CPU tensors; the scan marshal
-is plain PyTorch ops.
+tensors and their plain PyTorch versions on CPU tensors. The exact DCTs
+store their rows in scan order themselves (kernels/dct.scan_entries); the
+scan marshal (plain PyTorch ops) remains for --fast-dct and for the
+callers that keep the per-plane coefficients.
 The host builds optimal tables, stuffs 0xFF bytes and writes the JFIF
 container (the port's tables.py and io/).
 
@@ -167,30 +169,44 @@ def scan_entries(
     fast_dct: bool = False,
     bin_dct_descale: bool = False,
     live_rows: int | None = None,
-) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    with_coeffs: bool = False,
+) -> tuple[torch.Tensor,
+           tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None]:
     """(H, W, 3) uint8 RGB on a device, or a BMP file's stored rows there
-    (bmp.Rows) -> ((E, 64) int16 scan entries, the (N_i, 64) zigzag
-    coefficients [Y, Cb, Cr]): the front half every core shares (the
-    front: colour, pad, subsample; the DCT; the scan marshal).
+    (bmp.Rows) -> ((E, 64) int16 scan entries, with with_coeffs the (N_i,
+    64) zigzag coefficients [Y, Cb, Cr], else None): the front half every
+    core shares (the front: colour, pad, subsample; the DCT into scan
+    order).
 
     A batch (B, H, W, 3), or rows of (B, H, stride), gives the B images'
     entries one after another, (B * E, 64): the B padded planes of each
     component are stacked into one (B * Hp, Wp) plane (Hp is a multiple
     of 8, so image b's blocks are rows b * ny ... (b + 1) * ny - 1 of the
-    DCT's raster order), the DCT kernels run once on the three stacked
-    planes, and the marshal gathers each image's entries from [all Y | all
-    Cb | all Cr].
+    DCT's raster order), and the DCT kernel runs once on the three
+    stacked planes.
+
+    RealDCT and binDCT write each block's row straight to its scan entry
+    (kernels/dct.scan_entries). --fast-dct, and every call with
+    with_coeffs, runs the plane kernel in raster order and the scan
+    marshal (ops/entropy.marshal_scan_inputs) gathers each image's entries
+    from [all Y | all Cb | all Cr]; the bytes are the same.
 
     The front is the F1 kernel (kernels/front.py; its plain version on the
     CPU). live_rows zeroes the Y, Cb and Cr rows at or past it, counted
     over the B * H rows of the stack (ops/front.planes).
     """
     y, cb, cr = front_kernel.planes(image, geom, live_rows)
+    if not with_coeffs and not (fast_dct
+                                and algorithm == DctAlgorithm.REAL_DCT):
+        return dct_kernel.scan_entries(
+            y, cb, cr, geom, algorithm, quality,
+            bin_dct_descale=bin_dct_descale), None
     coeffs = dct_planes_zigzag(
         y, cb, cr, algorithm, quality,
         fast_dct=fast_dct, bin_dct_descale=bin_dct_descale,
     )
-    return entropy_ops.marshal_scan_inputs(*coeffs, geom), coeffs
+    return (entropy_ops.marshal_scan_inputs(*coeffs, geom),
+            coeffs if with_coeffs else None)
 
 
 def custom_core(
@@ -251,6 +267,7 @@ def encode_core(
     z, coeffs = scan_entries(
         rgb, geom, algorithm, quality,
         fast_dct=fast_dct, bin_dct_descale=bin_dct_descale,
+        with_coeffs=with_coeffs,
     )
     result = custom_core(z, geom, capacity_bytes, validate=validate)
     if with_coeffs:
@@ -662,7 +679,8 @@ def scan_program(
     def program(rgb):
         z, coeffs = scan_entries(
             rgb, geom, config.dct_algorithm, config.quality,
-            fast_dct=config.fast_dct, bin_dct_descale=config.bin_dct_descale)
+            fast_dct=config.fast_dct, bin_dct_descale=config.bin_dct_descale,
+            with_coeffs=with_coeffs)
         result = custom_core(z, geom, capacity_bytes, None,
                              config.restart_interval, config.validate, packer)
         result["z"] = z

@@ -1,7 +1,7 @@
 """The scan encoder: scan entries -> packed entropy-coded bytes.
 
 Port of jpeg_encoder_tpu/ops/entropy.py encode_scan and encode_scan_restart
-over the marshalled (E, 64) entries. It sits above the kernels (it picks
+over the (E, 64) scan entries. It sits above the kernels (it picks
 one), so it is a module of its own: ops/entropy.py is the plain code the
 kernels' wrappers run for CPU tensors.
 
@@ -66,7 +66,7 @@ def encode_entries(
     luts: tuple[torch.Tensor, torch.Tensor] | None = None,
     packer: str = "fused",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(E, 64) int16 scan entries (ops/entropy.marshal_scan_inputs) ->
+    """(E, 64) int16 scan entries (pipeline.scan_entries) ->
     (bytes (capacity_bytes,) uint8, total_bits int64), or with
     restart_mcus (bytes (n_int, capacity_bytes), bits (n_int,)): one row
     per restart interval, capacity_bytes each, its DC predictors reset to

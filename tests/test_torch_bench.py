@@ -57,6 +57,17 @@ RUNS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch's intra-op threads at one for the module's cases: beside the
+    suite's other workers, its default threads make these small cases wait
+    for each other's turns (tests/test_torch_benchmark.py has the same)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def last_json(capsys) -> dict:
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 

@@ -19,8 +19,10 @@ over a batch of images (per-image rows, intervals and tables), and K5 over
 one row and many and on operands at the edges of its walk (runs of 0-bit
 entries, 56-word entries, a row past bit 2^31, capacities that cut an
 entry), with one device operation a call; the per-block tier (K6a/b, K6c) also against K1 and K3
-on the same blocks; then restart, optimized, batch and band-tiled encodes
-on the card against the CPU path. The unmarked tests run everywhere and pin the
+on the same blocks; K1 and K3 storing straight into the scan entries
+(dct.scan_entries) at 1080p, 512² and quirk sizes and on stacks of images
+against the plain DCT and the marshal; then restart, optimized, batch and
+band-tiled encodes on the card against the CPU path. The unmarked tests run everywhere and pin the
 build's behaviour.
 """
 
@@ -552,6 +554,40 @@ def test_block_kernels_match_plain_and_plane_kernels(cuda, n, is_luma,
         assert torch.equal(got.cpu(), fn(blocks, is_luma, quality))
         three = planes_fn(*planes, quality)
         assert torch.equal(got, three[0 if is_luma else 1].to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [
+    (DctAlgorithm.REAL_DCT, None, False), (DctAlgorithm.REAL_DCT, 90, False),
+    (DctAlgorithm.BIN_DCT, None, False), (DctAlgorithm.BIN_DCT, 90, True),
+], ids=["realdct", "realdct-q90", "bindct", "bindct-descale-q90"])
+@pytest.mark.parametrize("ratio, size, batch", [
+    ((4, 2, 0), (1920, 1080), 1), ((4, 2, 2), (1920, 1080), 1),
+    ((4, 4, 4), (512, 512), 1), ((4, 2, 0), (1921, 1081), 1),
+    ((4, 2, 0), (33, 17), 3), ((4, 2, 2), (17, 33), 3),
+    ((4, 4, 4), (40, 24), 3),
+])
+def test_scan_entries_kernels_match_plain(cuda, variant, ratio, size, batch):
+    """K1 and K3 storing into the scan entries (dct.scan_entries) exactly
+    against the plain DCT and the marshal on CPU tensors: quirk sizes
+    (their -1 blocks unwritten) and stacks of images; one launch."""
+    algorithm, quality, descale = variant
+    geom = EncoderConfig(subsampling_ratio=ratio).geometry(*size)
+    cpu = _random_planes(((batch * geom.padded_height, geom.padded_width),
+                          (batch * geom.chroma_height, geom.chroma_width)),
+                         batch + sum(size))
+    kernel = (dct_kernel.REALDCT if algorithm == DctAlgorithm.REAL_DCT
+              else dct_kernel.BINDCT)
+    before = kernel.launches
+    got = dct_kernel.scan_entries(*(p.to(cuda) for p in cpu), geom,
+                                  algorithm, quality, bin_dct_descale=descale)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    coeffs = (dct_ops.real_dct_quant_planes_zigzag(*cpu, quality)
+              if algorithm == DctAlgorithm.REAL_DCT
+              else dct_ops.bin_dct_quant_planes_zigzag(*cpu, quality, descale))
+    assert torch.equal(got.cpu(), entropy_ops.marshal_scan_inputs(*coeffs,
+                                                                  geom))
 
 
 def _batch_entries(config, cuda, size, count=3):

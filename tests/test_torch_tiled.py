@@ -95,12 +95,17 @@ def test_splice_refuses_short_chunks():
 
 @pytest.mark.parametrize("ratio", [(4, 2, 0), (4, 4, 4)])
 def test_final_dc_matches_jax(ratio):
-    """final_dc over stacked bands == the JAX package's, band by band."""
+    """final_dc over stacked bands == the JAX package's, band by band, and
+    == the final DCs the band path reads from the stack's entries."""
     config = EncoderConfig(subsampling_ratio=ratio)
     geom = config.geometry(40, 32)
     stack = torch.from_numpy(_image(4 * 32, 40, seed=3).reshape(4, 32, 40, 3))
-    _, coeffs = pipeline.scan_entries(stack, geom, config.dct_algorithm)
+    z, coeffs = pipeline.scan_entries(stack, geom, config.dct_algorithm,
+                                      with_coeffs=True)
     got = entropy_ops.final_dc(*coeffs, geom)
+    entries, _ = pipeline.scan_entries(stack, geom, config.dct_algorithm)
+    assert torch.equal(entries, z)
+    assert torch.equal(entropy_ops.final_dc_of_entries(entries, geom), got)
     ny, nc = geom.num_luma_blocks, geom.num_chroma_blocks
     for b in range(4):
         want = jax_entropy.final_dc(

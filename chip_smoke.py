@@ -1,12 +1,13 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--parent DIR]
+    python3 chip_smoke.py [--parent DIR ...]
 
 Builds the port's CUDA kernels from jpeg_encoder_torch/csrc (one nvcc per
 source, all at once), holds each against its plain PyTorch version (F1
 the front, an RGB array or a BMP file's stored rows to the padded planes,
 at every ratio, full size and quirk geometries, batches and live rows,
-and all 2^24 RGB triples against the oracle; K1 RealDCT, K4 entropy, K3 binDCT, K5 bitstream assembly and the per-block
+and all 2^24 RGB triples against the oracle, with the conversion
+instructions of each front_kernel counted in its SASS; K1 RealDCT, K4 entropy, K3 binDCT, K5 bitstream assembly and the per-block
 tier K6a/b and K6c exactly, K4 also over restart intervals with
 live_entries, over a batch of images with per-image rows, intervals and
 tables, and over one image's MCU bands with one init_dc vector a row, K6
@@ -72,7 +73,8 @@ every file against the one-card file on the card), each
 path between a reset and a read of the launch counts (each path's F1
 launches equal to its plane-DCT launches: every front is the kernel), and
 times the kernels (beside their bounds; F1 also from stored rows, at 4K
-and on 8 x 1080p, beside the plain front), the batch against a loop of single
+and on 8 x 1080p, beside the plain front, and cold: each call on another
+copy of the rows, more than twice the L2 cache together), the batch against a loop of single
 encodes, and the end-to-end encodes, encode_tiled against encode_array
 (host ms with each stage alone, device-busy ms and the top device
 operations), K4 with one init_dc a row against the (3,) form, and each
@@ -135,9 +137,10 @@ replays, and eager against replayed host, events and graph ms. The batch
 and stream phases print the same for the batch programs (encode_batch and
 the stream's ms an image, a chunk program's events and graph ms), and
 every path prints how many programs the cache evicted while it ran. With
---parent DIR (a checkout of an earlier commit)
-it also builds DIR's sources of the kernels that differ and times both
-builds on the same operands. K5 also runs on adversarial operands (runs
+--parent DIR (a checkout of an earlier commit; the option may be given
+again) it also builds DIR's sources of the kernels that differ and times
+both builds on the same operands (F1 through DIR's own wrapper, warm and
+cold, in turns with this tree's). K5 also runs on adversarial operands (runs
 of 0-bit entries, 56-word entries, a row past bit 2^31, cut capacities).
 Any mismatch or error exits non-zero before the final line,
 which is
@@ -399,7 +402,7 @@ def stored_rows(images: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(rows)
 
 
-def front_phase(cuda, images_1080, images_4k, card) -> float:
+def front_phase(cuda, images_1080, images_4k, card, others=()) -> float:
     """F1 (kernels/front.py) against its plain version (ops/front.planes)
     on the same card inputs, exactly, every plane contiguous and 8-byte
     aligned: 4:4:4, 4:2:2 and 4:2:0, each for an RGB array and for stored
@@ -408,14 +411,23 @@ def front_phase(cuda, images_1080, images_4k, card) -> float:
     one, 1921x1089 in a batch of 2, the quirk geometries 17x17, 33x17 and
     49x33 in a batch of 3, and widths 1-20 (every row padding) in batches
     of 3; all 2^24 RGB triples through F1 against the oracle
-    (bench/parity.py --color's sweep); one device operation a call; then
-    F1's graph ms (bench/timing.graph_ms) beside its bound and the plain
-    version's, at 1080p and 4K, from either form, and 8 x 1080p rows.
-    Returns the largest |F1 - plain|."""
+    (bench/parity.py --color's sweep); one device operation a call; the
+    conversion instructions (I2F, F2I, FRND) in each instantiation of
+    front_kernel (cuobjdump -sass); then F1's graph ms (bench/timing.graph_ms)
+    beside its bound and the plain version's, at 1080p and 4K, from either
+    form, and 8 x 1080p rows, and from rows cold (timing.cold_graph_ms:
+    each call on another copy, the copies more than twice the L2 cache).
+    `others` ({label: checkout}, chip_smoke --parent) are other trees' F1,
+    each its wrapper (kernels/front.py) and its csrc/front.cu, timed in
+    turns with this tree's (other, this, this, other) on the same inputs,
+    each line saying whether their planes equal this tree's (a parent's
+    do; a probe that leaves out part of the work does not). Returns the
+    largest |F1 - plain|."""
     from jpeg_encoder_torch.bench import kernels as bench_kernels
     from jpeg_encoder_torch.bench import parity
     from jpeg_encoder_torch.config import EncoderConfig
     from jpeg_encoder_torch.io import bmp
+    from jpeg_encoder_torch.kernels import _build
     from jpeg_encoder_torch.kernels import front as front_kernel
     from jpeg_encoder_torch.ops import front as front_ops
 
@@ -484,6 +496,71 @@ def front_phase(cuda, images_1080, images_4k, card) -> float:
     print(f"F1 device operations per call, 1920x1080 4:2:0 rows: {count} "
           f"({'; '.join(f'{n[:50]} x{c}' for n, c, _ in ops)}) ({card})",
           flush=True)
+
+    with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
+        fronts = {label: other_front(tree, os.path.join(tmp, label))
+                  for label, tree in others.items()}
+        libs = {"this tree": _build.lib_path("front")}
+        libs.update((label, os.path.join(tmp, label, "libfront.so"))
+                    for label in others)
+        for label, lib in libs.items():
+            print(f"front SASS conversions, {label}: "
+                  f"{sass_line(_build.sass_counts(lib, CONVERSIONS))}",
+                  flush=True)
+        front_times(cuda, card, hd, images_4k, inputs, fronts)
+    return float(worst)
+
+
+# The opcodes of the conversion unit that F1's arithmetic avoids.
+CONVERSIONS = ("I2F", "F2I", "FRND")
+
+
+def sass_line(counts: dict | None) -> str:
+    """_build.sass_counts' result as one line."""
+    if counts is None:
+        return "not counted: the toolkit has no cuobjdump"
+    return "; ".join(
+        f"{kernel} " + (", ".join(f"{op} {n}" for op, n in sorted(ops.items()))
+                        or "none")
+        for kernel, ops in sorted(counts.items()))
+
+
+def other_front(tree: str, build_dir: str):
+    """Another checkout's F1: its kernels/front.py loaded as a module of
+    its own, its FRONT taken from its csrc/front.cu built into build_dir;
+    the module's planes(image, geom) runs it (its own C signature)."""
+    import importlib.util
+
+    from jpeg_encoder_torch.kernels import _build
+
+    _build.build(["front"], csrc=os.path.join(tree, "jpeg_encoder_torch",
+                                              "csrc"), build_dir=build_dir)
+    spec = importlib.util.spec_from_file_location(
+        f"front_of_{os.path.basename(build_dir)}",
+        os.path.join(tree, "jpeg_encoder_torch", "kernels", "front.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.FRONT = module.FRONT.loaded_from(
+        os.path.join(build_dir, "libfront.so"))
+    return module
+
+
+def front_times(cuda, card, hd, images_4k, inputs, fronts) -> None:
+    """F1's warm and cold graph ms at 1080p, 4K and 8 x 1080p 4:2:0 beside
+    its bound and the plain front's, and each of `fronts` (other trees'
+    F1) in turns with it (front_phase)."""
+    from jpeg_encoder_torch.bench import kernels as bench_kernels
+    from jpeg_encoder_torch.config import EncoderConfig
+    from jpeg_encoder_torch.io import bmp
+    from jpeg_encoder_torch.kernels import front as front_kernel
+    from jpeg_encoder_torch.ops import front as front_ops
+
+    def in_turns(other, this):
+        """(other's mean, this's mean) of the runs other, this, this,
+        other."""
+        o1, t1, t2, o2 = other(), this(), this(), other()
+        return (o1 + o2) / 2, (t1 + t2) / 2
+
     for label, images in (("1920x1080", hd[:1]),
                           ("3840x2160", next(iter(images_4k.values()))[None]),
                           (f"{len(hd)} x 1920x1080", hd)):
@@ -491,17 +568,54 @@ def front_phase(cuda, images_1080, images_4k, card) -> float:
         for form, image in inputs(images):
             if len(images) > 1 and form == "rgb":
                 continue
-            kernel = timing.graph_ms(
-                lambda: front_kernel.planes(image, geom), cuda)
-            plain = timing.graph_ms(
-                lambda: front_ops.planes(image, geom), cuda)
             bound_ms, by = bench_kernels.front_bound(geom, len(images),
                                                      form == "rows")
+
+            def warm_ms(module=front_kernel):
+                return timing.graph_ms(lambda: module.planes(image, geom),
+                                       cuda)
+
+            kernel = warm_ms()
+            plain = timing.graph_ms(
+                lambda: front_ops.planes(image, geom), cuda)
             print(f"time front {label} 4:2:0 from {form}: F1 graph "
                   f"{kernel:.4f} ms, plain graph {plain:.4f} ms, bound "
                   f"{bound_ms:.5f} ms ({by}; F1 {kernel / bound_ms:.1f}x) "
                   f"({card})", flush=True)
-    return float(worst)
+            cold_ms = None
+            if form == "rows":
+                copies = timing.past_l2(image.rows)
+
+                def cold_ms(module=front_kernel):
+                    return timing.cold_graph_ms(
+                        lambda rows: module.planes(
+                            bmp.Rows(rows, image.width, image.height), geom),
+                        copies, cuda)
+
+                ms = cold_ms()
+                size = sum(c.numel() for c in copies)
+                print(f"time front {label} 4:2:0 from rows, cold: F1 graph "
+                      f"{ms:.4f} ms, a call on each of {len(copies)} copies "
+                      f"({size / 1e6:.1f} MB, L2 "
+                      f"{timing.l2_bytes(cuda) / 1e6:.1f} MB), bound "
+                      f"{bound_ms:.5f} ms ({by}; F1 {ms / bound_ms:.1f}x) "
+                      f"({card})", flush=True)
+            for name, module in fronts.items():
+                same = all(torch.equal(want, got) for want, got in zip(
+                    front_kernel.planes(image, geom),
+                    module.planes(image, geom)))
+                other_ms, this_ms = in_turns(lambda: warm_ms(module),
+                                             warm_ms)
+                line = (f"time front {label} 4:2:0 from {form} vs {name} "
+                        f"(planes {'equal' if same else 'differ'}): warm "
+                        f"graph {name} {other_ms:.4f} ms, this tree "
+                        f"{this_ms:.4f} ms")
+                if cold_ms is not None:
+                    other_ms, this_ms = in_turns(lambda: cold_ms(module),
+                                                 cold_ms)
+                    line += (f"; cold {name} {other_ms:.4f} ms, this tree "
+                             f"{this_ms:.4f} ms")
+                print(f"{line} ({card})", flush=True)
 
 
 # The entries phase's geometries: (label, ratio, width, height, images
@@ -3672,7 +3786,8 @@ def parent_phase(parent: str, cuda, card) -> None:
     run timing_phase's 1080p 4:2:0 calls of that kernel (same operands):
     their results must be equal, and their device-busy times are printed,
     in turns (parent, this tree, this tree, parent). The parent's C entry
-    must take the same arguments."""
+    must take the same arguments. F1 is not among them: front_phase times
+    the parent's F1 through its own wrapper."""
     import filecmp
 
     from jpeg_encoder_torch.kernels import _build
@@ -3683,13 +3798,15 @@ def parent_phase(parent: str, cuda, card) -> None:
 
     parent_csrc = os.path.join(parent, "jpeg_encoder_torch", "csrc")
     # A kernel the parent does not have is not compared.
-    changed = [k for k in all_kernels()
-               if os.path.exists(os.path.join(parent_csrc, f"{k.lib}.cu"))
+    changed = [k for k in all_kernels() if k is not front_kernel.FRONT
+               and os.path.exists(os.path.join(parent_csrc, f"{k.lib}.cu"))
                and not filecmp.cmp(os.path.join(_build.CSRC, f"{k.lib}.cu"),
                                    os.path.join(parent_csrc, f"{k.lib}.cu"),
                                    shallow=False)]
     print(f"parent {parent}: kernels whose source differs: "
           f"{[k.name for k in changed]}", flush=True)
+    if not changed:
+        return
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
         _build.build(sorted({k.lib for k in changed}), csrc=parent_csrc,
                      build_dir=tmp)
@@ -3781,9 +3898,10 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--parent", metavar="DIR",
-        help="a checkout of an earlier commit: also time its builds of the "
-             "kernels whose sources differ, on the same operands")
+        "--parent", metavar="DIR", action="append", default=[],
+        help="a checkout of an earlier commit (may be given again for "
+             "another): also time its builds of the kernels whose sources "
+             "differ, on the same operands (F1 with its own wrapper)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3836,7 +3954,9 @@ def main() -> int:
                             k4_band_phase(cuda, images_1080))
     errors["pack"] = k5_phase(cuda, images_1080)
     errors.update(k6_phase(cuda, rng))
-    errors["front"] = front_phase(cuda, images_1080, images_4k, card)
+    errors["front"] = front_phase(
+        cuda, images_1080, images_4k, card,
+        {os.path.basename(os.path.normpath(d)): d for d in args.parent})
     phase_s = {"entries": entries_s}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix=".chip_smoke_", dir=REPO) as tmp:
@@ -3903,7 +4023,8 @@ def main() -> int:
     phase_s["timing"] = time.perf_counter() - t0
     if args.parent:
         t0 = time.perf_counter()
-        parent_phase(args.parent, cuda, card)
+        for parent in args.parent:
+            parent_phase(parent, cuda, card)
         phase_s["parent"] = time.perf_counter() - t0
     print(f"K2 fastdct 1920x1080 4:2:0 device-busy {fmt(busy['fastdct'])} ms, "
           f"graph {graph['fastdct']:.4f} ms vs torch.matmul (its product "

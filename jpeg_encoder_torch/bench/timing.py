@@ -17,7 +17,11 @@ then `calls` calls are captured into one CUDA graph on a side stream and
 the graph is replayed between two events, GRAPH_REPS times; -> the median
 ms per call. Unlike the profiler's busy time it drops nothing, and unlike
 events around one call it holds no Python. A kernel wrapper counts its
-launch at capture, not at replay.
+launch at capture, not at replay. Its input stays in the card's L2 cache
+from one call to the next: cold_graph_ms(fn, inputs, device) replays one
+call on each of several distinct inputs in turn, more bytes together than
+twice the L2 cache (past_l2 makes such copies), so each call finds its
+input evicted and reads it from device memory.
 
 With device "cpu" both timers read the host clock (clock "host"); a
 "cuda" device without a card raises (parallel/devices.resolve_device).
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -165,6 +170,53 @@ def graph_ms(fn, device: torch.device, calls: int = 10,
             clock.start()
             graph.replay()
             times.append(clock.stop() * 1e3 / calls)
+        graph.reset()
+        return statistics.median(times)
+
+
+def l2_bytes(device: torch.device) -> int:
+    """The card's L2 cache in bytes."""
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
+def past_l2(tensor: torch.Tensor) -> list[torch.Tensor]:
+    """tensor and distinct copies of it on its card, more bytes together
+    than twice the card's L2 cache: cold_graph_ms's inputs."""
+    size = tensor.numel() * tensor.element_size()
+    count = 2 * l2_bytes(tensor.device) // size + 1
+    return [tensor] + [tensor.clone() for _ in range(count - 1)]
+
+
+def cold_graph_ms(fn, inputs: list[torch.Tensor], device: torch.device,
+                  reps: int = GRAPH_REPS) -> float:
+    """Median ms per call of fn(x) by CUDA-graph replay, as graph_ms, with
+    one call on each of `inputs` in turn: distinct tensors of more bytes
+    together than twice the card's L2 cache (raises otherwise), so that
+    every call reads its input from device memory; the host clock on the
+    CPU."""
+    if device.type == "cpu":
+        turn = itertools.cycle(inputs)
+        return graph_ms(lambda: fn(next(turn)), device, 1, reps)
+    size = sum(x.numel() * x.element_size() for x in inputs)
+    if size <= 2 * l2_bytes(device):
+        raise ValueError(f"{len(inputs)} inputs of {size} bytes together "
+                         f"fit in twice the L2 cache of {device}")
+    with torch.cuda.device(device):
+        for x in inputs:
+            fn(x)
+        torch.cuda.synchronize(device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for x in inputs:
+                fn(x)
+        graph.replay()
+        torch.cuda.synchronize(device)
+        clock = EventClock(device)
+        times = []
+        for _ in range(reps):
+            clock.start()
+            graph.replay()
+            times.append(clock.stop() * 1e3 / len(inputs))
         graph.reset()
         return statistics.median(times)
 

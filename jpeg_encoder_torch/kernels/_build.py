@@ -15,6 +15,8 @@ exact by contract spells its fused multiply-adds out). A failed build
 raises with nvcc's stderr; there is no fallback. ptxas reports each
 kernel's registers, spills and shared memory (-Xptxas=-v); build() keeps
 the reports of the sources it compiled (ptxas_usage reads them).
+sass_counts counts chosen opcodes in each kernel of a built library
+(cuobjdump -sass), e.g. the conversions F1 is written to avoid.
 """
 
 from __future__ import annotations
@@ -138,6 +140,52 @@ def ptxas_usage(name: str) -> list[str]:
                          f"{smem.group(1) if smem else 0} bytes smem")
             kernel = None
     return lines
+
+
+def cuobjdump_path() -> str | None:
+    """The toolkit's cuobjdump beside nvcc, or on PATH; None if neither."""
+    with contextlib.suppress(RuntimeError):
+        beside = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+        if os.path.exists(beside):
+            return beside
+    return shutil.which("cuobjdump")
+
+
+def kernel_label(symbol: str) -> str:
+    """A mangled kernel name as its name and template arguments, e.g.
+    front_kernel<2, 2, 1> (integers and bools in order)."""
+    found = re.findall(r"[A-Za-z_]+_kernel", symbol)
+    name = found[-1] if found else symbol
+    tail = symbol.split(name, 1)[-1]
+    args = re.findall(r"L[ib](\d+)E", tail.split("EEv", 1)[0])
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
+def sass_counts(path: str, prefixes: tuple[str, ...]) -> dict | None:
+    """{kernel label: {opcode: count}} of the library at path: the SASS
+    instructions (cuobjdump -sass) of each kernel whose opcode begins with
+    one of prefixes, by full opcode (e.g. I2F.U32); None where the toolkit
+    has no cuobjdump."""
+    tool = cuobjdump_path()
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, kernel = {}, None
+    for line in out.splitlines():
+        func = re.search(r"Function : (\S+)", line)
+        if func:
+            kernel = counts.setdefault(kernel_label(func.group(1)), {})
+            continue
+        op = _SASS_OPCODE.search(line)
+        if kernel is not None and op and op.group(1).startswith(prefixes):
+            kernel[op.group(1)] = kernel.get(op.group(1), 0) + 1
+    return counts
+
+
+# An instruction of cuobjdump -sass: its address, a predicate, the opcode.
+_SASS_OPCODE = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -15,6 +15,7 @@ runs the plain version, ops/front.planes, which is the kernel's spec.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -29,12 +30,20 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 FRONT = Kernel(
     "front", "jt_front_planes",
-    (_P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _P),
+    (_P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I, _L, _L, _P, _P, _P, _P, _I,
+     _P),
     replaces="jpeg_encoder_tpu/pipeline.py:251",
 )
 
 # The colour coefficients, in host memory for the launch's by-value copy.
 _COEFFICIENTS = np.ascontiguousarray(color.COEFFICIENTS, dtype=np.float32)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Card `index`'s streaming multiprocessors, read once: the kernel's
+    grid is a fixed number of CTAs on each, so a captured launch keeps it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(image: torch.Tensor | bmp.Rows, geom: FrameGeometry,
@@ -71,7 +80,7 @@ def planes(
     """F1: the image -> (Y (B * padded_height, padded_width), Cb, Cr (B *
     chroma_height, chroma_width)) uint8 padded planes, bit-identical to
     ops/front.planes; on CUDA three contiguous views of one new tensor,
-    each 64-byte aligned."""
+    each 64-byte aligned (the kernel stores Y 16 bytes at a time)."""
     data = _check(image, geom, live_rows)
     if data.device.type == "cpu":
         return front_ops.planes(image, geom, live_rows)
@@ -94,6 +103,7 @@ def planes(
             batch, geom.width, geom.height, geom.h_factor, geom.v_factor,
             geom.padded_width, geom.padded_height, nc, live,
             _COEFFICIENTS.ctypes.data, y.data_ptr(), cb.data_ptr(),
-            cr.data_ptr(), torch.cuda.current_stream(data.device).cuda_stream,
+            cr.data_ptr(), sm_count(data.device.index),
+            torch.cuda.current_stream(data.device).cuda_stream,
         )
     return y, cb, cr

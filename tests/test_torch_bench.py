@@ -241,6 +241,14 @@ def test_cuda_without_a_card_raises(run, monkeypatch, tmp_path):
         module.main([*argv, "--device", "cuda"])
 
 
+def test_cold_graph_ms_on_cpu_takes_each_input_in_turn():
+    seen = []
+    ms = timing.cold_graph_ms(seen.append, [1, 2, 3], torch.device("cpu"),
+                              reps=4)
+    assert ms >= 0
+    assert seen == [1, 2, 3, 1, 2]  # one warm call, then one a repetition
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -264,6 +272,19 @@ def test_graph_ms_on_card(cuda):
     assert timing.graph_ms(lambda: pipeline.encode_core(
         ops.rgb, ops.geom, DctAlgorithm.REAL_DCT, ops.cap,
         with_coeffs=False), cuda, calls=2, reps=3) > 0
+
+
+@pytest.mark.cuda
+def test_cold_graph_ms_on_card(cuda):
+    """cold_graph_ms refuses inputs that fit in twice the L2 cache, and
+    times past_l2's copies, each call on another."""
+    rows = torch.zeros(1 << 22, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="L2"):
+        timing.cold_graph_ms(torch.neg, [rows, rows.clone()], cuda)
+    copies = timing.past_l2(rows)
+    assert len(copies) * rows.numel() > 2 * timing.l2_bytes(cuda)
+    assert len({c.data_ptr() for c in copies}) == len(copies)
+    assert timing.cold_graph_ms(torch.neg, copies, cuda, reps=3) > 0
 
 
 @pytest.mark.cuda

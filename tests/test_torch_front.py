@@ -8,10 +8,11 @@ composed as its pipeline composes them, and against its NumPy oracle, at
 4:4:4, 4:2:2 and 4:2:0 on the quirk geometries (dim % (8 * factor) == 1)
 and at widths 1-20 (every BMP row padding), for both input forms (an RGB
 array, and a BMP file's stored rows read with bmp.read(out=)), a batch of
-three images and live_rows; the wrapper's checks; encode_array,
+three images and live_rows; the wrapper's checks; the bit identities
+F1's conversions rest on, over all 2^24 RGB triples; encode_array,
 encode_file and encode_batch bytes against the JAX package's and the
-oracle's. The cuda-marked tests hold F1 to the plain version on the card
-and skip here. JAX is imported inside the fixtures that need it, so the
+oracle's. The cuda-marked tests hold F1 to the plain version and all 2^24
+RGB triples to the oracle on the card, and skip here. JAX is imported inside the fixtures that need it, so the
 card tests run where JAX is absent.
 """
 
@@ -208,6 +209,50 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(bad):
 
 
 # --------------------------------------------------------------------------
+# The bit identities F1's conversions rest on (csrc/front.cu)
+# --------------------------------------------------------------------------
+
+TWO23 = 2.0 ** 23
+
+
+def test_a_byte_under_the_exponent_of_2_to_the_23_is_its_value():
+    """The bits 0x4B000000 | c are the float 2^23 + c: minus 2^23, c."""
+    c = np.arange(256, dtype=np.uint32)
+    value = (np.uint32(0x4B000000) | c).view(np.float32) - np.float32(TWO23)
+    np.testing.assert_array_equal(value, c.astype(np.float32))
+
+
+@pytest.mark.parametrize("channel", range(3), ids=["y", "cb", "cr"])
+def test_clamping_then_adding_2_to_the_23_toward_zero_gives_the_byte(
+        channel):
+    """For all 2^24 RGB triples through ops/color's per-operation-rounded
+    chains, clamp(x, 0, 255) + 2^23 rounded toward zero is a float whose
+    low byte is ops/color._to_u8(x) (the sum is exact in float64, where
+    toward zero is floor), and whose bits above the byte are 0x4B000000."""
+    from jpeg_encoder_torch.ops import color
+
+    luts = color._channel_luts_np()
+    first, second, third = luts[3 * channel: 3 * channel + 3]
+    values = np.arange(256)
+    g, b = (a.ravel() for a in np.meshgrid(values, values, indexing="ij"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for r in range(256):
+            x = (first[r] + second[g] if channel == 0
+                 else first[r] - second[g])
+            x = x - third[b] if channel == 2 else x + third[b]
+            bits = (np.floor(np.clip(x, 0, 255).astype(np.float64) + TWO23)
+                    .astype(np.float32).view(np.uint32))
+            want = color._to_u8(torch.from_numpy(x)).numpy()
+            assert x.dtype == np.float32
+            np.testing.assert_array_equal(bits & 0xFF, want)
+            np.testing.assert_array_equal(bits >> 8, 0x4B0000)
+    finally:
+        torch.set_num_threads(threads)
+
+
+# --------------------------------------------------------------------------
 # The entry points' bytes
 # --------------------------------------------------------------------------
 
@@ -298,6 +343,13 @@ def test_card_front_equals_plain(cuda, form, ratio):
     for live_rows in (0, 9, 17, 30, 51):
         _card_case(cuda, _images(11, 3, 17, 33), _geom(33, 17, ratio), form,
                    live_rows)
+
+
+@pytest.mark.cuda
+def test_card_front_converts_every_rgb_triple_as_the_oracle(cuda):
+    from jpeg_encoder_torch.bench import parity
+
+    assert parity.color_mismatches(parity.color_grid(1), cuda) == 0
 
 
 @pytest.mark.cuda

@@ -104,6 +104,45 @@ def test_build_runs_one_nvcc_per_source(monkeypatch, tmp_path):
         assert "-fmad=false" in call and "arch=compute_90a,code=sm_90a" in call
 
 
+SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_112front_kernelILi2ELi2ELb1EEEvNS_8GeometryEiNS_11FrontParamsEPhS3_S3_
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   I2F.U32.RP R5, R4 ;
+        /*0020*/              @!P0 F2I.FTZ.U32.TRUNC.NTZ R5, R4 ;
+        /*0030*/                   I2F.U32.RP R6, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_112front_kernelILi1ELi1ELb0EEEvNS_8GeometryEiNS_11FrontParamsEPhS3_S3_
+        /*0000*/                   FADD.RZ R2, R2, 8388608 ;
+        /*0010*/                   FRND.TRUNC R3, R3 ;
+"""
+
+
+def test_sass_counts_reads_each_kernels_opcodes(monkeypatch, tmp_path):
+    """sass_counts counts, in each kernel of cuobjdump -sass's listing, the
+    instructions whose opcode begins with a prefix, predicated or not."""
+    listing = tmp_path / "listing"
+    listing.write_text(SASS)
+    fake = tmp_path / "cuobjdump"
+    fake.write_text(f"#!/bin/sh\ncat {listing}\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "cuobjdump_path", lambda: str(fake))
+    assert _build.sass_counts("libfront.so", ("I2F", "F2I", "FRND")) == {
+        "front_kernel<2, 2, 1>": {"I2F.U32.RP": 2,
+                                  "F2I.FTZ.U32.TRUNC.NTZ": 1},
+        "front_kernel<1, 1, 0>": {"FRND.TRUNC": 1},
+    }
+    assert _build.sass_counts("libfront.so", ("MUFU",)) == {
+        "front_kernel<2, 2, 1>": {}, "front_kernel<1, 1, 0>": {}}
+
+
+def test_sass_counts_without_cuobjdump_is_none(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    assert _build.cuobjdump_path() is None
+    assert _build.sass_counts("libfront.so", ("I2F",)) is None
+
+
 def test_every_kernel_has_its_source():
     """The eight kernels come from the six csrc sources (the per-block
     tier shares realdct.cu and bindct.cu with K1 and K3), each of K1-K6
